@@ -1,0 +1,190 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources in `gi_gs_tpu_torch/csrc/*.cu` have a plain C interface. At
+the first CUDA call they are compiled by nvcc for sm_90a, one process per
+source started together, linked into one shared library under
+`build/torch_kernels/` (keyed by a hash of sources and flags) and loaded
+with ctypes. Nothing here runs at import time: the CPU tests import every
+module of the package on a machine without nvcc.
+
+`launches` counts, per kernel, the launches made by its wrapper; a run
+sets the counts to 0 (`reset_launches`) and reads them afterwards to show
+which kernels a code path went through. Inside `timed()`, each launch is
+also bracketed by CUDA events on its stream, so the device time of the
+kernel alone (without its wrapper's torch work) can be read back.
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+SOURCES = ("expand.cu", "composite_fwd.cu", "gi_march.cu", "patch_fwd.cu")
+# -fmad=false: no multiply-add contraction, so each kernel rounds like its
+# plain PyTorch version (the exact f32 tile cull of `expand` relies on it).
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
+
+KERNELS = ("expand", "composite_fwd", "gi_march", "patch_fwd")
+launches: Dict[str, int] = {k: 0 for k in KERNELS}
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+# (kernel, start event, end event) per launch while `timed()` is active
+_events: Optional[List[Tuple[str, torch.cuda.Event, torch.cuda.Event]]] = None
+build_log: str = ""
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "gigs_expand": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
+    "gigs_composite_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                           _F, _P, _P, _P],
+    "gigs_gi_march": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
+                      _F, _F, _I, _I, _P, _P, _P],
+    "gigs_patch_fwd": [_I, _P, _P, _P, _I, _I, _I, _P],
+}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+@contextlib.contextmanager
+def timed():
+    """Record a pair of CUDA events around every launch made inside the
+    block. Yields a dict that, once the block has ended (the device is
+    synchronised on exit), maps each kernel to the list of its launches'
+    device milliseconds."""
+    global _events
+    prev, _events = _events, []
+    ms: Dict[str, List[float]] = {}
+    try:
+        yield ms
+        torch.cuda.synchronize()
+        for name, start, end in _events:
+            ms.setdefault(name, []).append(start.elapsed_time(end))
+    finally:
+        _events = prev
+
+
+def nvcc_path() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "are built from gi_gs_tpu_torch/csrc at first use")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(p.name for p in CSRC.iterdir()
+                       if p.suffix in (".cu", ".cuh")):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile every source in parallel and link the shared library;
+    returns its path (an up-to-date library is reused)."""
+    global build_log
+    so = BUILD_DIR / f"libgigs_kernels_{_digest()}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    tag = f"{os.getpid()}"
+    procs = []
+    for src in SOURCES:
+        obj = BUILD_DIR / f"{Path(src).stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for src, _, p in procs:
+        out, _ = p.communicate()
+        logs.append(f"== {src}\n{out}")
+        if p.returncode != 0:
+            failed.append(src)
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
+    tmp = BUILD_DIR / f"libgigs_kernels.{tag}.so"
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp), *[str(o) for _, o, _ in procs]]
+    res = subprocess.run(link, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{res.stdout}")
+    os.replace(tmp, so)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            lib.gigs_error_string.argtypes = [ctypes.c_int]
+            lib.gigs_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
+    """Call one C launcher on `device`'s current stream, raise on a launch
+    error, and count the launch."""
+    lib = library()
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    stream = torch.cuda.current_stream(idx)
+    if _events is not None:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record(stream)
+    err = getattr(lib, fn_name)(idx, *args, stream.cuda_stream)
+    if _events is not None:
+        end.record(stream)
+        _events.append((kernel, start, end))
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
+                           f"{lib.gigs_error_string(err).decode()}")
+    launches[kernel] += 1
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
+          device: Optional[torch.device] = None) -> None:
+    """Validate a kernel argument: CUDA, dtype, shape, contiguity."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

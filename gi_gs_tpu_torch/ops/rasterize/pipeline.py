@@ -1,0 +1,118 @@
+"""End-to-end rasterization (port of gi_gs_tpu/ops/rasterize/pipeline.py):
+preprocess -> bin/sort -> composite -> G-buffer images. Forward only, as
+the render path needs it (`argmax_depth=False`)."""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .binning import bin_and_sort
+from .composite import composite_fwd, composite_table
+from .config import RasterConfig
+from .preprocess import preprocess
+from ...utils import timing
+
+
+class RasterOutput(NamedTuple):
+    color: torch.Tensor        # [3, H, W] with background composited
+    opacity: torch.Tensor      # [1, H, W] accumulated weight
+    depth: torch.Tensor        # [1, H, W] weight-normalised view z
+    normal: torch.Tensor       # [3, H, W] accumulated world normal (raw)
+    normal_view: torch.Tensor  # [3, H, W] normalised view-space normal
+    pos_view: torch.Tensor     # [3, H, W] weight-normalised view position
+    albedo: torch.Tensor       # [3, H, W]
+    roughness: torch.Tensor    # [1, H, W] (+final_T when inference)
+    metallic: torch.Tensor     # [1, H, W]
+    final_t: torch.Tensor      # [1, H, W] residual transmittance
+    radii: torch.Tensor        # [N] int32 screen radii (0 = culled)
+    visibility: torch.Tensor   # [N] bool
+    overflow: torch.Tensor     # [] dropped instances (diagnostics)
+    max_tile_count: torch.Tensor  # [] (diagnostics)
+
+
+def _tiles_to_image(tiles: torch.Tensor, grid, cfg: RasterConfig,
+                    height: int, width: int) -> torch.Tensor:
+    """[T, CH, P] -> [CH, H, W] (crop the tile padding)."""
+    ty, tx = grid
+    ch = tiles.shape[1]
+    img = tiles.reshape(ty, tx, ch, cfg.tile_h, cfg.tile_w)
+    img = img.permute(2, 0, 3, 1, 4).reshape(ch, ty * cfg.tile_h,
+                                             tx * cfg.tile_w)
+    return img[:, :height, :width]
+
+
+def _quotient(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """num / den where den > 1e-6, else 0 (the forward of
+    `_ref_quotient`)."""
+    ok = den > 1e-6
+    return torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)),
+                       torch.zeros_like(num))
+
+
+def count_instances(means3d, cov3d, w2c, full_proj, tanfovx, tanfovy,
+                    height: int, width: int, cfg: RasterConfig,
+                    opacity: Optional[torch.Tensor] = None) -> int:
+    """Exact (gaussian, tile) instance count of one view, dummies
+    included — what `cap_instances` must hold."""
+    pre = preprocess(means3d, cov3d, w2c, full_proj, tanfovx, tanfovy,
+                     width, height, cfg, opacity=opacity)
+    return int(torch.clamp(pre.tiles_touched, min=1).sum())
+
+
+CAP_QUANTUM = 1 << 16  # instance-capacity bucket granularity
+
+
+def bucket_cap_instances(needed: int, headroom: float = 1.15,
+                         quantum: int = CAP_QUANTUM) -> int:
+    """Round a measured instance count up to a capacity bucket."""
+    want = max(int(needed * headroom), quantum)
+    return -(-want // quantum) * quantum
+
+
+def rasterize(means3d: torch.Tensor, cov3d: torch.Tensor,
+              opacity: torch.Tensor,       # [N, 1] activated
+              color: torch.Tensor,         # [N, 3] per-view RGB
+              normal: torch.Tensor,        # [N, 3] activated (unit)
+              albedo: torch.Tensor,        # [N, 3]
+              roughness: torch.Tensor,     # [N, 1]
+              metallic: torch.Tensor,      # [N, 1]
+              w2c: torch.Tensor, full_proj: torch.Tensor,
+              tanfovx: float, tanfovy: float, height: int, width: int,
+              bg_color: torch.Tensor,      # [3]
+              cfg: RasterConfig, inference: bool = False) -> RasterOutput:
+    grid = cfg.grid(height, width)
+    dev = means3d.device
+    with timing.stage("preprocess", dev):
+        pre = preprocess(means3d, cov3d, w2c, full_proj, tanfovx, tanfovy,
+                         width, height, cfg, opacity=opacity)
+    with timing.stage("binning", dev):
+        b = bin_and_sort(pre, height, width, cfg)
+    with timing.stage("composite", dev):
+        table = composite_table(pre, opacity, color, normal, albedo,
+                                roughness, metallic)
+        accum, final_t = composite_fwd(table, b.ids, b.tile_start,
+                                       b.tile_count, cfg, grid)
+
+    img = _tiles_to_image(accum, grid, cfg, height, width)   # [16, H, W]
+    t_img = _tiles_to_image(final_t[:, None, :], grid, cfg, height, width)
+
+    o = img[3:4]
+    out_color = img[0:3] + t_img * bg_color[:, None, None]
+    out_normal = img[4:7]
+    out_rough = img[10:11] + (t_img if inference else 0.0)  # forward.cu:612-616
+    out_depth = _quotient(img[12:13], o)
+    out_pos = _quotient(img[13:16], o)
+
+    # View-space normal, normalised in the kernel with no backward path
+    # (forward.cu:600-605).
+    n_view = torch.einsum("ij,jhw->ihw", w2c[:3, :3], out_normal)
+    n_norm = torch.linalg.norm(n_view, dim=0, keepdim=True)
+    n_view = (n_view / torch.clamp(n_norm, min=1e-12)).detach()
+
+    return RasterOutput(
+        color=out_color, opacity=o, depth=out_depth, normal=out_normal,
+        normal_view=n_view, pos_view=out_pos, albedo=img[7:10],
+        roughness=out_rough, metallic=img[11:12], final_t=t_img,
+        radii=pre.radius, visibility=pre.radius > 0,
+        overflow=b.overflow, max_tile_count=b.max_tile_count)

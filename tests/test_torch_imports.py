@@ -1,0 +1,77 @@
+"""Import hygiene of the port and its CUDA-by-default entry points."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import gi_gs_tpu_torch
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        gi_gs_tpu_torch.__path__, "gi_gs_tpu_torch."))
+
+
+def test_port_imports_without_jax_or_reference_package():
+    """Every module imports with `jax` and `gi_gs_tpu` made unimportable."""
+    mods = _modules()
+    assert "gi_gs_tpu_torch.cli.render_cli" in mods
+    assert "gi_gs_tpu_torch.ops.cuda_kernels" in mods
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'gi_gs_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'gi_gs_tpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_no_kernel_is_built_at_import():
+    from gi_gs_tpu_torch.ops import cuda_kernels as ck
+    assert ck._lib is None
+    assert set(ck.launches) == {"expand", "composite_fwd", "gi_march",
+                                "patch_fwd"}
+
+
+def test_cuda_default_entry_points_raise_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the CUDA default is valid")
+    from gi_gs_tpu_torch.cli import render_cli
+    from gi_gs_tpu_torch.models.gaussians import FIELDS, params_from_numpy
+    from gi_gs_tpu_torch.scene.cameras import make_camera
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render_cli.main(["--model_path", str(tmp_path),
+                         "--source_path", str(tmp_path)])
+    fields = {k: np.zeros((4, 3), np.float32) for k in FIELDS}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy(fields, 0, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_camera(np.eye(3), np.zeros(3), 1.0, 1.0, 8, 8)
+    # asking for the CPU works
+    cam = make_camera(np.eye(3), np.zeros(3), 1.0, 1.0, 8, 8, device="cpu")
+    assert cam.w2c.device.type == "cpu"
+
+
+def test_wrappers_reject_bad_cuda_arguments():
+    """The argument checks run before any build: wrong device, dtype,
+    shape or layout raise instead of launching."""
+    from gi_gs_tpu_torch.ops import cuda_kernels as ck
+    t = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        ck.check(t, "t", torch.float32)

@@ -1,0 +1,98 @@
+"""The four CUDA kernels against their plain PyTorch versions on the card
+(csrc/*.cu, built at first use). Marked `cuda`: they skip without a GPU.
+On a machine with one (without JAX, so skip the tests' conftest):
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py"""
+import numpy as np
+import pytest
+import torch
+
+from gi_gs_tpu_torch.ops import cubemap as cm
+from gi_gs_tpu_torch.ops import cuda_kernels as ck
+from gi_gs_tpu_torch.ops import screen_space as ss
+from gi_gs_tpu_torch.ops.rasterize import RasterConfig, binning, composite
+from gi_gs_tpu_torch.ops.rasterize.preprocess import preprocess
+from gi_gs_tpu_torch.scene.cameras import make_camera
+from gi_gs_tpu_torch.utils.math_utils import build_covariance_3d
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _scene(dev, n=4000, w=200, h=120, seed=0):
+    rng = np.random.RandomState(seed)
+    cam = make_camera(np.eye(3), np.zeros(3), 1.0, 0.7, w, h, device=dev)
+    z = rng.uniform(1, 5, (n, 1))
+    xyz = np.concatenate([rng.uniform(-0.45, 0.45, (n, 2)) * z, z], 1)
+    q = rng.normal(size=(n, 4))
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    cov = build_covariance_3d(t(np.exp(rng.uniform(-4, -2.5, (n, 3)))),
+                              t(q / np.linalg.norm(q, axis=1, keepdims=True)))
+    op = t(rng.uniform(0.05, 0.99, (n, 1)))
+    cfg = RasterConfig(cap_instances=1 << 16)
+    pre = preprocess(t(xyz), cov, cam.w2c, cam.full_proj, cam.tanfovx,
+                     cam.tanfovy, w, h, cfg, opacity=op)
+    feats = t(rng.uniform(0, 1, (n, 15)))
+    return cfg, pre, op, feats, (h, w)
+
+
+def test_expand_matches_plain(dev):
+    cfg, pre, _, _, (h, w) = _scene(dev)
+    before = ck.launches["expand"]
+    k = binning.expand(pre, h, w, cfg)
+    p = binning._expand_plain(pre, h, w, cfg)
+    assert ck.launches["expand"] == before + 1
+    for a, b in zip(k[:4], p[:4]):
+        assert torch.equal(a, b)
+
+
+def test_composite_matches_plain(dev):
+    cfg, pre, op, feats, (h, w) = _scene(dev, seed=1)
+    b = binning.bin_and_sort(pre, h, w, cfg)
+    table = torch.cat([pre.means2d, pre.conic, op, feats[:, :11],
+                       pre.depth[:, None], pre.pos_view], 1).contiguous()
+    grid = cfg.grid(h, w)
+    ka, kt = composite.composite_fwd(table, b.ids, b.tile_start,
+                                     b.tile_count, cfg, grid)
+    pa, pt = composite._composite_fwd_plain(table, b.ids, b.tile_start,
+                                            b.tile_count, cfg, grid)
+    torch.testing.assert_close(ka, pa, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(kt, pt, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_rgb", [False, True])
+def test_gi_march_matches_plain(dev, with_rgb):
+    h, w = 60, 90
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    z = 2.5 + 0.4 * np.sin(xs / 11) + 0.3 * np.cos(ys / 7)
+    z[:, w // 2:] += 0.8
+    fx = float(np.float32(0.9 * w))
+    pos = torch.tensor(np.stack([(xs - w / 2) / fx * z, (ys - h / 2) / fx * z,
+                                 z]), dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    nrm = torch.randn(3, h, w, device=dev, generator=g)
+    nrm[2] -= 1.5
+    rgb = torch.rand(3, h, w, device=dev, generator=g) if with_rgb else None
+    p = ss.GIParams()
+    ko, kd = ss.gi_march(nrm, pos, rgb, fx, fx, p)
+    po, pd = ss._gi_march_plain(nrm, pos, rgb, fx, fx, p)
+    # same hits; the sums run in another order
+    torch.testing.assert_close(ko, po, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(kd, pd, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("R,rough", [(64, 0.36), (128, 0.22)])
+def test_patch_matches_plain(dev, R, rough):
+    h, src, W = cm._patch_tables(R, rough, 0.99)
+    W = torch.as_tensor(W, device=dev)
+    src = torch.as_tensor(src, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    cmap = torch.rand(6, R, R, 3, device=dev, generator=g)
+    k = cm._specular_apply_patch(cmap, src, W, h)
+    p = cm._apply_patch_plain(cmap, src, W, h)
+    torch.testing.assert_close(k, p, rtol=1e-6, atol=1e-6)

@@ -1,0 +1,127 @@
+"""The port's screen-space operators against the JAX reference on the
+CPU: SSAO/SSR through the plain version of the csrc/gi_march.cu kernel
+vs the jnp oracle (exact), vs the Pallas exact kernel in interpret mode
+(within its RGB quantisation bound) and vs the frozen goldens."""
+import os
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from gi_gs_tpu.ops import pallas_gi
+from gi_gs_tpu.ops import screen_space as jss
+
+from gi_gs_tpu_torch.ops import screen_space as tss
+
+torch.set_num_threads(1)
+
+FIX = os.path.join(os.path.dirname(__file__), "fixtures")
+SMALL = dict(radius=0.8, bias=0.01, thick=0.05, delta=0.25, step=4, start=2)
+
+
+def _scene(h, w, seed=0):
+    """Smooth-ish depth with a hard edge, unit normals and a few
+    background pixels, like a rendered G-buffer."""
+    rng = np.random.RandomState(seed)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    z = 2.5 + 0.4 * np.sin(xs / 11.0) + 0.3 * np.cos(ys / 7.0)
+    z += 0.05 * rng.rand(h, w).astype(np.float32)
+    z[:, w // 2:] += 0.8
+    fx = fy = float(np.float32(0.9 * w))
+    pos = np.stack([(xs - w / 2.0) / fx * z, (ys - h / 2.0) / fy * z, z],
+                   0).astype(np.float32)
+    n = rng.randn(3, h, w).astype(np.float32)
+    n[2] -= 1.5
+    n /= np.linalg.norm(n, axis=0, keepdims=True)
+    n[:, :2, :3] = 0.0
+    pos[:, :2, :3] = 0.0
+    return n, pos, fx, fy
+
+
+def _ssr_inputs(h, w, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.rand(c, h, w).astype(np.float32) * s
+            for c, s in ((3, 1.0), (3, 1.0), (1, 1.0), (1, 1.0), (3, 0.2))]
+
+
+@pytest.mark.parametrize("gi", [SMALL, {}], ids=["small", "defaults"])
+def test_ssao_ssr_match_jnp_oracle(gi):
+    h, w = (16, 40) if gi else (12, 24)
+    n, pos, fx, fy = _scene(h, w, seed=1)
+    rgb, albedo, rough, metal, f0 = _ssr_inputs(h, w, seed=2)
+    jp = jss.GIParams(**gi, backend="jnp")
+    tp = tss.GIParams(**gi)
+    T = torch.as_tensor
+    ao_j = np.asarray(jss.ssao(jnp.asarray(n), jnp.asarray(pos), fx, fy, jp))
+    ao_t = tss.ssao(T(n), T(pos), fx, fy, tp).numpy()
+    np.testing.assert_allclose(ao_t, ao_j, rtol=1e-5, atol=1e-5)
+    cj, gj = jss.ssr(*map(jnp.asarray, (n, pos, rgb, albedo, rough, metal,
+                                        f0)), fx, fy, jp)
+    ct, gt = tss.ssr(*map(T, (n, pos, rgb, albedo, rough, metal, f0)),
+                     fx, fy, tp)
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_ssr_matches_pallas_exact_within_quantisation():
+    """The Pallas exact kernel packs RGB into 11-11-10 bits; the port reads
+    f32 RGB like the jnp oracle, so the two agree within that kernel's own
+    quantisation bound (tests/test_pallas_gi.py)."""
+    h, w = 16, 144
+    n, pos, fx, fy = _scene(h, w, seed=1)
+    rgb, albedo, rough, metal, f0 = _ssr_inputs(h, w, seed=2)
+    jp = jss.GIParams(**SMALL, backend="pallas_exact")
+    cj, gj = pallas_gi.ssr_pallas(
+        *map(jnp.asarray, (n, pos, rgb, albedo, rough, metal, f0)), fx, fy,
+        jp, interpret=True, mode="exact")
+    ct, gt = tss.ssr(*map(torch.as_tensor, (n, pos, rgb, albedo, rough,
+                                            metal, f0)),
+                     fx, fy, tss.GIParams(**SMALL))
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=5e-3,
+                               atol=5e-3)
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=5e-3,
+                               atol=5e-3)
+
+
+def test_screen_space_matches_golden():
+    g = np.load(os.path.join(FIX, "golden_screen_space.npz"))
+    p = tss.GIParams(**SMALL)
+    T = torch.as_tensor
+    normal, pos = T(g["normal"]), T(g["pos"])
+    fx, fy = float(g["fx"]), float(g["fy"])
+    ao = tss.ssao(normal, pos, fx, fy, p)[0].numpy()
+    np.testing.assert_allclose(ao, g["ao"], atol=1e-5)
+    h, w = g["ao"].shape
+    color, abd = tss.ssr(normal, pos, T(g["rgb"]), T(g["albedo"]),
+                         torch.full((1, h, w), 0.4), torch.zeros(1, h, w),
+                         torch.full((3, h, w), 0.04), fx, fy, p)
+    np.testing.assert_allclose(color.numpy(), g["ssr_color"], atol=1e-5)
+    np.testing.assert_allclose(abd.numpy(), g["ssr_abd"], atol=1e-5)
+    nrm_w, dpos = tss.depth_to_normal(pos[2], torch.eye(4), fx, fy)
+    np.testing.assert_allclose(nrm_w.numpy(), g["d2n_normal"], atol=1e-5)
+    np.testing.assert_allclose(dpos.numpy(), g["d2n_pos"], atol=1e-5)
+
+
+def test_depth_to_normal_matches_jax():
+    rng = np.random.RandomState(5)
+    _, pos, fx, fy = _scene(20, 30, seed=3)
+    depth = pos[2].copy()
+    depth[5:8, 10:14] = 0.0          # holes trip the 5x5 validity window
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[:3, :3] = np.linalg.qr(rng.randn(3, 3))[0]
+    nj, pj = jss.depth_to_normal(jnp.asarray(depth), jnp.asarray(w2c), fx, fy)
+    nt, pt = tss.depth_to_normal(torch.as_tensor(depth),
+                                 torch.as_tensor(w2c), fx, fy)
+    np.testing.assert_allclose(nt.numpy(), np.asarray(nj), atol=1e-5)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), atol=1e-6)
+
+
+def test_direction_table_matches_pallas_gi():
+    for gi in (SMALL, {}):
+        tab_j, sw_j, n_j = pallas_gi._direction_table(jss.GIParams(**gi))
+        tab_t, sw_t, n_t = tss.direction_table(tss.GIParams(**gi))
+        np.testing.assert_array_equal(tab_t, tab_j)
+        assert (sw_t, n_t) == (sw_j, n_j)
