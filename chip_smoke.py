@@ -10,16 +10,31 @@ Phases (any failure exits non-zero):
                800x800, 300k alive Gaussians in capacity 2^19 (SH degree 3,
                random BRDF attributes), a random 256^2 cubemap, written as
                the port's chkpnt*.pt + cfg_args.json
-  4. kernels   each kernel against its plain PyTorch version on the card at
-               the shapes the main path gives it, with times and bounds;
-               a kernel's ms is its launches alone (CUDA events around the
-               C launcher, `cuda_kernels.timed`), the plain ms the whole
-               plain function
+  4. kernels   each serving kernel against its plain PyTorch version on the
+               card at the shapes the main path gives it, with times and
+               bounds; a kernel's ms is its launches alone (CUDA events
+               around the C launcher, `cuda_kernels.timed`), the plain ms
+               the whole plain function
   5. slice     the port's render CLI (`render_cli.main`) over the test
                views with every launch count set to 0 just before; every
-               kernel must have launched. Per-view and per-stage times.
+               serving kernel must have launched. Per-view and per-stage
+               times.
   6. parity    the whole render_pbr_view on CUDA tensors (kernels) against
                CPU tensors (plain versions) on a small scene
+  7. train     the port's train CLI (`train_cli.main`, phase 1) for 30
+               steps on 8 train views of 800x800 initialised from the 300k
+               shell points, with a densification and an opacity reset,
+               launch counts set to 0 just before: composite_bwd must
+               launch once per step. Per-step and per-stage times, alive
+               counts, capacity growth, peak memory; then 3 untimed
+               steps, and 3 under torch.profiler for the device time by
+               operation and the device's busy share.
+  8. composite_bwd  the kernel against its plain version at the training
+               path's settings: the trained state on its train view with
+               the densest tile, the RasterConfig the train CLI ended with
+               (cap_tile grown past the densest tile), random cotangents
+  9. train parity  one phase-1 loss and its gradients on CUDA tensors
+               (kernels) against CPU tensors (plain versions) at 64x48
 Then the kernel table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -48,6 +63,8 @@ CAPACITY = 1 << 19
 LIGHT_RES = 256
 N_VIEWS = 3
 N_GAUSSIANS = 300_000
+N_TRAIN_VIEWS = 8
+TRAIN_STEPS = 30
 
 
 def fail(msg: str) -> None:
@@ -97,6 +114,21 @@ def bound(nbytes: float, flops: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def kernel_entry(name, source, replaces, err, ok, tol, ms, plain_ms, nbytes,
+                 flops, **extra) -> dict:
+    """Logs one kernel-vs-plain check and returns its entry of the JSON
+    line (without `launches`); fails if the kernel disagrees."""
+    b_ms, b_by = bound(nbytes, flops)
+    log(f"  {name}: max|kernel - plain| = {err:.3e} (tolerance {tol}); "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}) {extra or ''}")
+    if not ok:
+        fail(f"{name} disagrees with its plain version ({err})")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, **extra)
+
+
 # ---------------------------------------------------------------------------
 # Synthetic scene
 # ---------------------------------------------------------------------------
@@ -113,10 +145,10 @@ def look_at_c2w(eye: np.ndarray) -> np.ndarray:
 
 
 def write_scene(root: str, rng: np.random.RandomState, n_test: int,
-                size: int) -> None:
+                size: int, n_train: int = 1) -> None:
     from gi_gs_tpu_torch.utils.image_io import write_png
     ys, xs = np.mgrid[0:size, 0:size] / size
-    for split, n in (("train", 1), ("test", n_test)):
+    for split, n in (("train", n_train), ("test", n_test)):
         os.makedirs(os.path.join(root, split), exist_ok=True)
         frames = []
         for i in range(n):
@@ -177,8 +209,8 @@ def random_cubemap(rng: np.random.RandomState, res: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def kernel_phase(torch, dev, cfg, state, cam, light_arrays, spec):
-    """Each kernel vs its plain version at the main path's shapes. Returns
-    the kernel entries of the JSON line (without `launches`)."""
+    """Each serving kernel vs its plain version at the main path's shapes.
+    Returns the kernel entries of the JSON line (without `launches`)."""
     from gi_gs_tpu_torch.ops import cubemap as cm
     from gi_gs_tpu_torch.ops import screen_space as ss
     from gi_gs_tpu_torch.ops.rasterize import binning, composite
@@ -190,18 +222,8 @@ def kernel_phase(torch, dev, cfg, state, cam, light_arrays, spec):
     p = state.params
     entries = []
 
-    def entry(name, source, replaces, err, ok, tol, ms, plain_ms, nbytes,
-              flops, **extra):
-        b_ms, b_by = bound(nbytes, flops)
-        log(f"  {name}: max|kernel - plain| = {err:.3e} (tolerance {tol}); "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}) {extra or ''}")
-        if not ok:
-            fail(f"{name} disagrees with its plain version ({err})")
-        entries.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, max_abs_err=float(err),
-                            ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=None, **extra))
+    def entry(*a, **kw):
+        entries.append(kernel_entry(*a, **kw))
 
     with torch.inference_mode():
         opacity = p.get_opacity()
@@ -327,7 +349,7 @@ TPU_KERNELS = [
      "composite_fwd_pallas", "ported: composite_fwd (peak=False); "
      "peak=True not yet"),
     ("gi_gs_tpu/ops/rasterize/pallas_composite.py:455",
-     "composite_bwd_pallas", "not yet (training slice)"),
+     "composite_bwd_pallas", "ported: composite_bwd"),
     ("gi_gs_tpu/ops/pallas_gi.py:522", "_march_pallas(mode=exact)",
      "ported: gi_march"),
     ("gi_gs_tpu/ops/pallas_gi.py:522", "_march_pallas(mode=coherent)",
@@ -457,9 +479,9 @@ def main() -> None:
     log(f"[slice] render_cli.main over {len(cams)} views in {wall:.1f} s; "
         f"launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in SERVING_KERNELS if launches[k] == 0]
     if missing:
-        fail(f"the main path launched no {missing}")
+        fail(f"the serving path launched no {missing}")
     log("  per-view ms: " + ", ".join(f"{1e3 * s:.1f}"
                                       for s in res["view_seconds"]))
     once = ("prefilter_tables", "build_mips")
@@ -496,8 +518,27 @@ def main() -> None:
     log(f"[parity] render_pbr_view CUDA vs CPU plain at 64x48: worst key "
         f"{err} ({time.time() - t0:.1f} s)")
 
+    # -- 7. train: the phase-1 train CLI, counting launches -------------------
+    train_launches, train_res, train_data = train_phase(
+        torch, dev, ck, timing, work, np.random.RandomState(args.seed + 2))
+
+    # -- 8. composite_bwd at the training path's settings ---------------------
+    entries.insert(2, composite_bwd_phase(torch, dev, train_res, train_data))
+    del train_res
+
+    # -- 9. train parity: one phase-1 gradient, kernels vs plain --------------
+    t0 = time.time()
+    err = train_parity_phase(torch, dev, config_mod, params_from_numpy,
+                             np.random.RandomState(args.seed + 3))
+    log(f"[train parity] phase-1 loss and gradients CUDA vs CPU plain at "
+        f"64x48: {err} ({time.time() - t0:.1f} s)")
+
+    # each kernel's launches from the run of the path it serves: the render
+    # CLI for the serving kernels, the train CLI for composite_bwd
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        e["launches"] = (train_launches if e["name"] in TRAINING_KERNELS
+                         else launches)[e["name"]]
+        e["launches_in_training"] = train_launches[e["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     table = {"kernels": [dict({k: e[k] for k in keys},
@@ -514,6 +555,273 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+SERVING_KERNELS = ("expand", "composite_fwd", "gi_march", "patch_fwd")
+TRAINING_KERNELS = ("composite_bwd",)
+
+
+def train_phase(torch, dev, ck, timing, work_dir, rng):
+    """The phase-1 train CLI on the card at full width: 8 train views and 2
+    test views of 800x800, initialised from the 300k shell points, 30
+    steps with a densification and an opacity reset at step 20. A 2-step
+    run first takes the per-process warm-up. Returns the launch counts of
+    the measured run, its result and the scene directory."""
+    from gi_gs_tpu_torch.cli import train_cli
+    from gi_gs_tpu_torch.scene.ply import store_point_cloud
+    data = os.path.join(work_dir, "train_scene")
+    t0 = time.time()
+    write_scene(data, rng, 2, SIZE, n_train=N_TRAIN_VIEWS)
+    pts = gaussian_fields(rng, N_GAUSSIANS, N_GAUSSIANS)["xyz"]
+    store_point_cloud(os.path.join(data, "points3d.ply"), pts,
+                      rng.uniform(0, 255, pts.shape))
+    log(f"[train scene] {N_TRAIN_VIEWS} train + 2 test views {SIZE}x{SIZE}, "
+        f"{N_GAUSSIANS} points, {time.time() - t0:.1f} s")
+    flags = ["--source_path", data, "--eval", "--densify_from_iter", "10",
+             "--densification_interval", "10", "--opacity_reset_interval",
+             "20", "--densify_until_iter", "25"]
+    t0 = time.time()
+    train_cli.main(flags + ["--model_path", os.path.join(work_dir, "warm"),
+                            "--iterations", "2", "--test_iterations", "0",
+                            "--save_iterations", "0"])
+    log(f"[train warm-up] 2 steps in a fresh model dir: "
+        f"{time.time() - t0:.1f} s")
+
+    model = os.path.join(work_dir, "train_model")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    timing.start()
+    t0 = time.time()
+    res = train_cli.main(flags + [
+        "--model_path", model, "--iterations", str(TRAIN_STEPS),
+        "--test_iterations", str(TRAIN_STEPS), "--save_iterations",
+        str(TRAIN_STEPS)])
+    wall = time.time() - t0
+    stages = timing.stop()
+    launches = dict(ck.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = res["steps"]
+    ms = [1e3 * st["seconds"] for st in steps]
+    steady = ms[2:]
+    log(f"[train] train_cli.main, {TRAIN_STEPS} phase-1 steps at {SIZE}x"
+        f"{SIZE} in {wall:.1f} s (scene load, init, probe, eval and "
+        f"checkpoint included); launches {launches}; peak device memory "
+        f"{peak:.2f} GiB")
+    log("  ms per step (device synchronised): " + ", ".join(
+        f"{m:.1f}" for m in ms))
+    log(f"  after 2 warm-up steps: mean {np.mean(steady):.2f}, min "
+        f"{min(steady):.2f}, max {max(steady):.2f} ms")
+    log("  stage ms per step (mean over steps, device synchronised at "
+        "stage ends): " + ", ".join(f"{k} {1e3 * v / TRAIN_STEPS:.2f}"
+                                   for k, v in stages.items()))
+    for r in res["reports"]:
+        log(f"  report {r}")
+    if launches["composite_bwd"] != TRAIN_STEPS:
+        fail(f"composite_bwd launched {launches['composite_bwd']} times in "
+             f"{TRAIN_STEPS} steps")
+    missing = [k for k in ("expand", "composite_fwd") if launches[k] == 0]
+    if missing:
+        fail(f"the training path launched no {missing}")
+    if not all(math.isfinite(st["loss"]) for st in steps):
+        fail(f"non-finite training loss {[st['loss'] for st in steps]}")
+    for name in (f"chkpnt{TRAIN_STEPS}.pt", f"eval_{TRAIN_STEPS}.json",
+                 os.path.join("point_cloud", f"iteration_{TRAIN_STEPS}",
+                              "point_cloud.ply")):
+        if not os.path.exists(os.path.join(model, name)):
+            fail(f"training did not write {name}")
+    p = res["state"].params
+    alive = p.alive
+    # densification at step 20 wrote into slots past the initial points;
+    # the opacity reset at step 20 left every opacity near 0.01
+    n_new = int(alive[N_GAUSSIANS:].sum())
+    max_op = float(torch.sigmoid(p.opacity[alive]).max())
+    log(f"  alive {int(alive.sum())} (in slots past the initial points: "
+        f"{n_new}), capacity {p.capacity}, max opacity after the reset "
+        f"{max_op:.4f}")
+    if n_new == 0 or max_op > 0.05:
+        fail("no densification or no opacity reset in the training run")
+    with open(os.path.join(model, f"eval_{TRAIN_STEPS}.json")) as f:
+        log(f"  eval_{TRAIN_STEPS}.json {json.load(f)}")
+    profile_steps(torch, dev, res, data)
+    return launches, res, data
+
+
+def profile_steps(torch, dev, res, data, n: int = 3):
+    """Device time by operation over `n` phase-1 steps on the trained
+    state (one train view, no densification), with torch.profiler: the
+    ops with the most device time, and the device's busy share of the
+    wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from gi_gs_tpu_torch.scene.dataset import load_scene
+    from gi_gs_tpu_torch.train import optim, trainer
+    cfg = res["cfg"]
+    rec = load_scene(data, eval_split=True).train_cameras[0]
+    cam = rec.camera(dev)
+    image = torch.as_tensor(rec.image, device=dev)
+    alpha = torch.as_tensor(rec.alpha, device=dev)
+    bg = torch.zeros(3, device=dev)
+    step = trainer.make_phase1_step(cfg, 1.0,
+                                    optim.build_optimizer(cfg.opt, 1.0))
+    state = res["state"]
+    state, _ = step(state, cam, image, alpha, bg, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, _ = step(state, cam, image, alpha, bg, 1)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            state, _ = step(state, cam, image, alpha, bg, 1)
+        torch.cuda.synchronize()
+    # device-side events only (an op's CPU event also carries the device
+    # time of the kernels it launched)
+    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    log(f"[train profile] {n} steps: {wall:.1f} ms per step unprofiled; "
+        f"device busy {busy:.1f} ms per step in the profiled steps "
+        f"({100 * busy / wall:.0f}% of the unprofiled step); "
+        f"{sum(r[2] for r in rows):.0f} device events per step")
+    for key, ms, count in rows[:15]:
+        log(f"  {ms:9.3f} ms  x{count:<5.0f} {key[:90]}")
+
+
+def composite_bwd_phase(torch, dev, res, data):
+    """composite_bwd vs its plain version at the training path's settings:
+    the trained state, the train view whose densest tile is the largest,
+    the RasterConfig the train CLI ended with (its cap_tile grown past that
+    tile), random cotangents. Returns the kernel's entry of the JSON line
+    (without `launches`)."""
+    from gi_gs_tpu_torch.ops.rasterize import binning, composite
+    from gi_gs_tpu_torch.ops.rasterize.preprocess import preprocess
+    from gi_gs_tpu_torch.scene.dataset import load_scene
+    rc = res["cfg"].raster
+    p = res["state"].params
+    with torch.no_grad():
+        opacity = p.get_opacity()
+        cov3d = p.get_covariance()
+        best = None
+        for rec in load_scene(data, eval_split=True).train_cameras:
+            cam = rec.camera(dev)
+            H, W = cam.height, cam.width
+            pre = preprocess(p.xyz, cov3d, cam.w2c, cam.full_proj,
+                             cam.tanfovx, cam.tanfovy, W, H, rc,
+                             opacity=opacity)
+            b = binning.bin_and_sort(pre, H, W, rc)
+            if best is None or int(b.max_tile_count) > best[0]:
+                best = (int(b.max_tile_count), cam, pre, b)
+        mtc, cam, pre, b = best
+        del best
+        H, W = cam.height, cam.width
+        log(f"[composite_bwd] at the training path's settings: trained "
+            f"state ({int(p.alive.sum())} alive), the train view with the "
+            f"densest tile ({mtc} instances), cap_tile {rc.cap_tile}, "
+            f"cap_instances {rc.cap_instances}")
+        if mtc > rc.cap_tile:
+            fail(f"the densest tile ({mtc}) is past the train CLI's cap_tile "
+                 f"{rc.cap_tile}")
+        table = composite.composite_table(
+            pre, opacity, p.colors_from_sh(cam.cam_pos), p.get_normal(),
+            p.get_albedo(), p.get_roughness(), p.get_metallic())
+        grid = rc.grid(H, W)
+        ka, kt = composite.composite_fwd(table, b.ids, b.tile_start,
+                                         b.tile_count, rc, grid)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        g_acc = torch.randn(ka.shape, device=dev, generator=gen)
+        g_t = torch.randn(kt.shape, device=dev, generator=gen)
+        bargs = (table, b.ids, b.tile_start, b.tile_count,
+                 ka[:, :4].contiguous(), kt, g_acc, g_t, rc, grid, (H, W))
+        k_rows = composite.composite_bwd(*bargs)
+        work = {}
+        p_rows = composite._composite_bwd_plain(*bargs, work=work)
+        torch.cuda.synchronize()
+        red = lambda r: composite.reduce_sorted_instance_grads(
+            r, b.inv_perm, b.offsets)
+        kd, pd = red(k_rows), red(p_rows)
+        err = float((kd - pd).abs().max())
+        ok = all(torch.allclose(x, y, rtol=2e-4, atol=float(
+            2e-5 * (y.abs().amax(dim=0).max() + 1e-3)))
+            for x, y in ((k_rows, p_rows), (kd, pd)))
+        # the reduction's f32 prefix-sum error against a float64 sum of the
+        # same rows per Gaussian (rows outside every tile are 0)
+        exact = torch.zeros((p.capacity, composite.TABLE_DIM),
+                            dtype=torch.float64, device=dev).index_add_(
+            0, b.ids.long(), k_rows.double())
+        red_err = float((kd.double() - exact).abs().max())
+        red_rel = red_err / float(exact.abs().max())
+        cap = b.ids.numel()
+        T, P = grid[0] * grid[1], rc.pixels_per_tile
+        return kernel_entry(
+            "composite_bwd", "gi_gs_tpu_torch/csrc/composite_bwd.cu",
+            "gi_gs_tpu/ops/rasterize/pallas_composite.py:455", err, ok,
+            "rtol 2e-4, atol 2e-5 x the largest column maximum, on the rows "
+            "and the per-Gaussian sums (the JAX test tolerance: the kernel "
+            "sums each instance's pixels in warp order and uses the "
+            "single-prefix d(alpha) form)",
+            kernel_ms(lambda: composite.composite_bwd(*bargs),
+                      "composite_bwd", 5),
+            cuda_ms(lambda: composite._composite_bwd_plain(*bargs), 1),
+            table.numel() * 4 + cap * 4 + T * 8 + T * 22 * P * 4
+            + cap * composite.TABLE_DIM * 4,
+            13.0 * work["pairs"] + 50.0 * work["contrib"],
+            pairs=work["pairs"], contributing_pairs=work["contrib"],
+            cap_tile=rc.cap_tile, max_tile_count=mtc,
+            reduction_f32_vs_f64_abs=red_err,
+            reduction_f32_vs_f64_rel=red_rel,
+            reduction_ms=cuda_ms(lambda: red(k_rows), 5))
+
+
+def train_parity_phase(torch, dev, config_mod, params_from_numpy, rng):
+    """trainer.loss_and_grads with CUDA tensors (the kernels) against the
+    same state on the CPU (the plain versions) at 64x48, default raster
+    config. Tolerance: loss to 1e-5 relative; every gradient (live slots,
+    and ndc_grad) within rtol 2e-4, atol 2e-5 x the field's largest
+    magnitude, as tests/test_torch_composite_bwd.py."""
+    from gi_gs_tpu_torch.scene.cameras import make_camera
+    from gi_gs_tpu_torch.train import trainer
+    n, cap = 3000, 4096
+    fields = gaussian_fields(rng, n, cap)
+    d = fields["xyz"][:n] / np.linalg.norm(fields["xyz"][:n], axis=1,
+                                            keepdims=True)
+    fields["xyz"][:n] = d * 0.8
+    fields["scaling"][:n] = rng.uniform(-4.0, -2.8, (n, 3))
+    ys, xs = np.mgrid[0:48, 0:64] / 64
+    img = np.stack([0.5 + 0.4 * np.sin(5 * xs + 3 * ys + p)
+                    for p in rng.uniform(0, 6, 3)]).astype(np.float32)
+    alpha = (np.hypot(xs - 0.5, ys - 0.37) < 0.3)[None].astype(np.float32)
+    cfg = config_mod.Config()
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        params = params_from_numpy(fields, 3, 3, device=device)
+        cam = make_camera(np.eye(3), np.array([0.0, 0.0, 3.0]), 0.9, 0.7, 64,
+                          48, device=device)
+        t = lambda a: torch.as_tensor(a, device=device)
+        loss, aux, grads, ndc = trainer.loss_and_grads(
+            cfg, params, cam, t(img), t(alpha), t(np.array([0.1, 0.2, 0.3],
+                                                           np.float32)))
+        grads["ndc"] = ndc
+        outs.append((float(loss), {k: v.cpu() for k, v in grads.items()}))
+    (lk, gk), (lp, gp) = outs
+    if abs(lk - lp) > 1e-5 * abs(lp):
+        fail(f"train parity: loss {lk} vs {lp}")
+    alive = torch.as_tensor(fields["alive"])
+    worst = {}
+    for k in gk:
+        a, b = gk[k][alive], gp[k][alive]
+        scale = float(b.abs().max())
+        worst[k] = float((a - b).abs().max()) / max(scale, 1e-30)
+        if not torch.allclose(a, b, rtol=2e-4, atol=2e-5 * scale):
+            fail(f"train parity: gradient of {k} differs by "
+                 f"{float((a - b).abs().max())} (largest {scale})")
+    k = max(worst, key=worst.get)
+    return (f"loss {lk:.6f} vs {lp:.6f}; worst gradient {k} "
+            f"{worst[k]:.2e} of its largest")
 
 
 def parity_phase(torch, dev, config_mod, render_cli, params_from_numpy, rng):

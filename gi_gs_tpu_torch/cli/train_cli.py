@@ -1,0 +1,234 @@
+"""Training CLI, phase 1 (port of gi_gs_tpu/cli/train_cli.py:73-307; ref
+train.py:171-527): random camera order, photometric + normal losses,
+densification, periodic held-out evaluation, checkpoints and PLY.
+
+    python -m gi_gs_tpu_torch.cli.train_cli --source_path SCENE \
+        --model_path OUT [--device cpu] [--iterations N ...]
+
+Same flags as the JAX CLI (`config.add_args`). Phase 2 (iterations above
+--pbr_iteration) and data parallelism (--dp > 1) are not ported yet and
+raise NotImplementedError at startup, before any step. Writes
+cfg_args.json, cameras.json, eval_{it}.json, chkpnt{it}.pt (readable by
+the port's render CLI) and point_cloud/iteration_{it}/point_cloud.ply.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from argparse import ArgumentParser
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .. import config as config_mod
+from ..models.gaussians import create_from_points
+from ..ops.rasterize.pipeline import bucket_cap_instances
+from ..renderer import render
+from ..scene.cameras import camera_to_json
+from ..scene.dataset import load_scene
+from ..train import trainer as trainer_mod
+from ..train.optim import build_optimizer
+from ..utils import checkpoint as ckpt
+from ..utils import image_utils, timing
+from ..utils.device import resolve_device
+
+
+@torch.no_grad()
+@timing.suspended()
+def evaluate(cfg, state, records, max_views: int = 8) -> Dict:
+    """Held-out PSNR/SSIM of phase-1 renders (ref training_report,
+    train.py:553-818); left out of the per-stage step times."""
+    dev = state.params.device
+    bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
+                      else [0.0, 0.0, 0.0], device=dev)
+    psnrs, ssims = [], []
+    for rec in records[:max_views]:
+        cam = rec.camera(dev)
+        image = torch.as_tensor(rec.image, device=dev)
+        alpha = torch.as_tensor(rec.alpha, device=dev)
+        gt = torch.clamp(image * alpha + bg[:, None, None] * (1 - alpha), 0, 1)
+        res = render(cam, state.params, bg, cfg.raster, cfg.gi,
+                     derive_normal=False, compute_occlusion=False)
+        img = torch.clamp(res["render"], 0.0, 1.0)
+        psnrs.append(float(image_utils.psnr(img, gt)))
+        ssims.append(float(image_utils.ssim(img, gt)))
+    return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims)),
+            "n_views": len(psnrs)}
+
+
+def main(argv=None):
+    parser = ArgumentParser(description="gi_gs_tpu_torch training (phase 1)")
+    config_mod.add_args(parser)
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device (default: cuda)")
+    args = parser.parse_args(argv)
+    cfg = config_mod.from_args(args)
+    if not cfg.model.source_path or not cfg.model.model_path:
+        raise ValueError("--source_path and --model_path are required")
+    if cfg.opt.iterations > cfg.train.pbr_iteration:
+        raise NotImplementedError(
+            f"--iterations {cfg.opt.iterations} > --pbr_iteration "
+            f"{cfg.train.pbr_iteration}: phase 2 (deferred PBR) is not ported "
+            "yet; it comes with the phase-2 training slice")
+    if cfg.train.dp > 1:
+        raise NotImplementedError(
+            f"--dp {cfg.train.dp}: data-parallel training is not ported yet; "
+            "it comes with the parallel slice")
+    device = resolve_device(args.device)
+
+    os.makedirs(cfg.model.model_path, exist_ok=True)
+    config_mod.save_cfg(cfg, cfg.model.model_path)
+    scene = load_scene(
+        cfg.model.source_path, images=cfg.model.images,
+        eval_split=cfg.model.eval, resolution=cfg.model.resolution,
+        white_background=cfg.model.white_background,
+        max_cameras=cfg.model.max_cameras or None)
+    with open(os.path.join(cfg.model.model_path, "cameras.json"), "w") as f:
+        json.dump([camera_to_json(i, r) for i, r in
+                   enumerate(scene.train_cameras + scene.test_cameras)], f)
+
+    params = create_from_points(scene.points, scene.colors,
+                                capacity=cfg.model.capacity,
+                                max_sh_degree=cfg.model.sh_degree,
+                                device=device)
+    state = trainer_mod.make_train_state(cfg, params, scene.cameras_extent,
+                                         seed=cfg.train.seed)
+    first_iter = 0
+    if cfg.train.start_checkpoint:
+        state, extra = ckpt.load_train_state(cfg.train.start_checkpoint,
+                                             device)
+        first_iter = extra.get("iteration", 0)
+        print(f"Loaded checkpoint {cfg.train.start_checkpoint} @ {first_iter}")
+    tx = build_optimizer(cfg.opt, scene.cameras_extent)
+
+    # Instance capacity from a probe of the real splat-tile population; it
+    # grows on overflow. An explicitly smaller --cap_instances is kept.
+    probe_cams = [r.camera(device) for r in scene.train_cameras[:3]]
+    cap0 = min(trainer_mod.probe_cap_instances(cfg, state.params, probe_cams),
+               cfg.raster.cap_instances)
+    cfg.raster = dataclasses.replace(cfg.raster, cap_instances=cap0)
+    print(f"instance capacity bucket: {cap0}", flush=True)
+    step = trainer_mod.make_phase1_step(cfg, scene.cameras_extent, tx)
+
+    def grow_capacity(overflow: int):
+        new_cap = bucket_cap_instances(cfg.raster.cap_instances + overflow,
+                                       headroom=1.3)
+        cfg.raster = dataclasses.replace(cfg.raster, cap_instances=new_cap)
+        print(f"instance capacity bucket -> {new_cap} "
+              f"(overflowed by {overflow})", flush=True)
+
+    def grow_cap_tile(max_tile_count: int):
+        """Instances past cap_tile are the most occluded ones but may still
+        be visible: grow (chunk-aligned) instead of truncating."""
+        ch = cfg.raster.chunk
+        new_cap = -(-int(max_tile_count * 1.3) // ch) * ch
+        cfg.raster = dataclasses.replace(cfg.raster, cap_tile=new_cap)
+        print(f"tile depth capacity -> {new_cap} "
+              f"(max per-tile population {max_tile_count})", flush=True)
+
+    train_recs = scene.train_cameras
+    cams = [r.camera(device) for r in train_recs]
+    images = [torch.as_tensor(r.image, device=device) for r in train_recs]
+    alphas = [torch.as_tensor(r.alpha, device=device) for r in train_recs]
+    bg_const = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
+                            else [0.0, 0.0, 0.0], device=device)
+
+    stack = []
+    t0 = t_report = time.time()
+    it_report = first_iter
+    rng = np.random.RandomState(cfg.train.seed)
+
+    def next_view():
+        nonlocal stack
+        if not stack:
+            stack = list(range(len(train_recs)))
+        return stack.pop(rng.randint(0, len(stack)))
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    # per step: loss and device-synchronised seconds; per report: the
+    # population and capacities
+    steps, reports = [], []
+    for iteration in range(first_iter + 1, cfg.opt.iterations + 1):
+        if iteration % 1000 == 0:
+            state = state.replace(params=state.params.one_up_sh_degree())
+        if cfg.opt.random_background:
+            bg = torch.as_tensor(rng.rand(3).astype(np.float32), device=device)
+        else:
+            bg = bg_const
+        vi = next_view()
+        t_step = time.perf_counter()
+        state, aux = step(state, cams[vi], images[vi], alphas[vi], bg,
+                          iteration)
+        sync()
+        steps.append({"iteration": iteration, "loss": float(aux.loss),
+                      "seconds": time.perf_counter() - t_step})
+        # Capacity checks on the densify cadence as well as the report
+        # cadence, so drop events off the report cadence are seen.
+        if iteration % 100 == 0 or iteration == first_iter + 1 or \
+                iteration % cfg.opt.densification_interval == 0:
+            loss = steps[-1]["loss"]
+            overflow = int(aux.overflow)
+            if overflow > 0:
+                grow_capacity(overflow)
+            mtc = int(aux.max_tile_count)
+            if mtc > cfg.raster.cap_tile:
+                grow_cap_tile(mtc)
+            alive = int(state.params.alive.sum())
+            dropped = int(aux.densify_dropped)
+            # Densification wanted more slots than exist, or the live
+            # population is at the ceiling: double the Gaussian capacity.
+            cap = state.params.capacity
+            if (dropped > 0 or alive > 0.92 * cap) and \
+                    iteration < cfg.opt.densify_until_iter and \
+                    cfg.model.max_capacity and cap < cfg.model.max_capacity:
+                new_cap = min(cap * 2, cfg.model.max_capacity)
+                state = trainer_mod.grow_state(state, new_cap)
+                print(f"[{iteration}] Gaussian capacity {cap} -> {new_cap} "
+                      f"(alive {alive}, densify dropped {dropped})",
+                      flush=True)
+            now = time.time()
+            ips = (iteration - it_report) / max(now - t_report, 1e-9)
+            t_report, it_report = now, iteration
+            reports.append({"iteration": iteration, "loss": loss,
+                            "alive": alive,
+                            "capacity": state.params.capacity,
+                            "cap_instances": cfg.raster.cap_instances,
+                            "cap_tile": cfg.raster.cap_tile,
+                            "densify_dropped": dropped})
+            print(f"[{iteration}] loss {loss:.5f} l1 {float(aux.l1):.5f} "
+                  f"psnr {float(aux.psnr):.2f} alive {alive}"
+                  + (f" dropped {dropped}" if dropped else "") +
+                  f" {ips:.2f} it/s", flush=True)
+
+        if iteration in cfg.train.test_iterations and scene.test_cameras:
+            n_eval = (len(scene.test_cameras)
+                      if iteration == cfg.opt.iterations else 8)
+            metrics = evaluate(cfg, state, scene.test_cameras, max_views=n_eval)
+            print(f"[ITER {iteration}] eval: {metrics}", flush=True)
+            with open(os.path.join(cfg.model.model_path,
+                                   f"eval_{iteration}.json"), "w") as f:
+                json.dump(metrics, f)
+
+        if iteration in cfg.train.save_iterations or \
+                iteration in cfg.train.checkpoint_iterations or \
+                iteration == cfg.opt.iterations:
+            path = os.path.join(cfg.model.model_path, f"chkpnt{iteration}.pt")
+            ckpt.save_state(path, state, {"iteration": iteration})
+            ckpt.save_gaussians_ply(
+                os.path.join(cfg.model.model_path,
+                             f"point_cloud/iteration_{iteration}",
+                             "point_cloud.ply"), state.params)
+            print(f"[ITER {iteration}] saved checkpoint {path}", flush=True)
+
+    print(f"Training complete in {time.time() - t0:.1f}s")
+    return {"state": state, "steps": steps, "reports": reports, "cfg": cfg}
+
+
+if __name__ == "__main__":
+    main()

@@ -12,7 +12,7 @@ gaussian-major order.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,11 +25,15 @@ class Binning(NamedTuple):
     ids: torch.Tensor          # [CAP] int32 gaussian index per sorted instance
     inst_tile: torch.Tensor    # [CAP] int32 tile id per sorted instance (T = sentinel)
     perm: torch.Tensor         # [CAP] int64 pre-sort (gaussian-major) position
+    inv_perm: torch.Tensor     # [CAP] int64 inverse of perm
     tile_start: torch.Tensor   # [T] int32 first sorted row of each tile
     tile_count: torch.Tensor   # [T] int32 instances per tile (capped at cap_tile)
     offsets: torch.Tensor      # [N+1] int32 per-gaussian segment bounds
     overflow: torch.Tensor     # [] rows beyond cap_instances (incl. dummies)
     max_tile_count: torch.Tensor  # [] max per-tile population (pre-cap)
+    # original gaussian of segment k, or None: segments are already in
+    # original gaussian order (JAX binning.py:193-209)
+    seg_gaussian: Optional[torch.Tensor] = None
 
 
 def _offsets(pre: Preprocessed) -> torch.Tensor:
@@ -168,6 +172,8 @@ def bin_and_sort(pre: Preprocessed, height: int, width: int,
     _, perm = torch.sort(sort_key(tile, depth), stable=True)
     sorted_tile = tile[perm]
     ids = gid[perm]
+    inv_perm = torch.empty_like(perm)
+    inv_perm[perm] = torch.arange(cap, dtype=perm.dtype, device=dev)
 
     tile_ids = torch.arange(num_tiles, dtype=torch.int32, device=dev)
     tile_start = torch.searchsorted(sorted_tile, tile_ids, right=False)
@@ -176,7 +182,7 @@ def bin_and_sort(pre: Preprocessed, height: int, width: int,
     tile_count = torch.clamp(raw_count, max=cfg.cap_tile)
 
     return Binning(
-        ids=ids, inst_tile=sorted_tile, perm=perm,
+        ids=ids, inst_tile=sorted_tile, perm=perm, inv_perm=inv_perm,
         tile_start=tile_start.to(torch.int32), tile_count=tile_count,
         offsets=offsets,
         overflow=torch.clamp(total - cap, min=0),

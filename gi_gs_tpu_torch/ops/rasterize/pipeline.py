@@ -1,6 +1,7 @@
 """End-to-end rasterization (port of gi_gs_tpu/ops/rasterize/pipeline.py):
-preprocess -> bin/sort -> composite -> G-buffer images. Forward only, as
-the render path needs it (`argmax_depth=False`)."""
+preprocess -> bin/sort -> composite -> G-buffer images, differentiable
+with respect to the Gaussian attributes (and the `ndc_offset` hook)
+through the compositing's custom backward (`argmax_depth=False`)."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -8,7 +9,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .binning import bin_and_sort
-from .composite import composite_fwd, composite_table
+from .composite import composite, composite_table
 from .config import RasterConfig
 from .preprocess import preprocess
 from ...utils import timing
@@ -42,12 +43,14 @@ def _tiles_to_image(tiles: torch.Tensor, grid, cfg: RasterConfig,
     return img[:, :height, :width]
 
 
-def _quotient(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
-    """num / den where den > 1e-6, else 0 (the forward of
-    `_ref_quotient`)."""
+def _ref_quotient(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """value num / den (den > 1e-6, else 0), gradient d/d(num) = 1: the
+    CUDA backward routes the depth/pos cotangent straight to the weighted
+    sum (backward.cu:590) and drops the quotient term."""
     ok = den > 1e-6
-    return torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)),
-                       torch.zeros_like(num))
+    val = torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)),
+                      torch.zeros_like(num))
+    return num + (val - num).detach()
 
 
 def count_instances(means3d, cov3d, w2c, full_proj, tanfovx, tanfovy,
@@ -80,19 +83,23 @@ def rasterize(means3d: torch.Tensor, cov3d: torch.Tensor,
               w2c: torch.Tensor, full_proj: torch.Tensor,
               tanfovx: float, tanfovy: float, height: int, width: int,
               bg_color: torch.Tensor,      # [3]
-              cfg: RasterConfig, inference: bool = False) -> RasterOutput:
+              cfg: RasterConfig,
+              ndc_offset: Optional[torch.Tensor] = None,
+              inference: bool = False) -> RasterOutput:
     grid = cfg.grid(height, width)
     dev = means3d.device
     with timing.stage("preprocess", dev):
         pre = preprocess(means3d, cov3d, w2c, full_proj, tanfovx, tanfovy,
-                         width, height, cfg, opacity=opacity)
-    with timing.stage("binning", dev):
+                         width, height, cfg, opacity=opacity,
+                         ndc_offset=ndc_offset)
+    # Binning consumes integer/ordering decisions only: no gradient flows
+    # through the sort keys (the CUDA binning is equally non-differentiable).
+    with timing.stage("binning", dev), torch.no_grad():
         b = bin_and_sort(pre, height, width, cfg)
     with timing.stage("composite", dev):
         table = composite_table(pre, opacity, color, normal, albedo,
                                 roughness, metallic)
-        accum, final_t = composite_fwd(table, b.ids, b.tile_start,
-                                       b.tile_count, cfg, grid)
+        accum, final_t = composite(table, b, cfg, grid, (height, width))
 
     img = _tiles_to_image(accum, grid, cfg, height, width)   # [16, H, W]
     t_img = _tiles_to_image(final_t[:, None, :], grid, cfg, height, width)
@@ -101,8 +108,8 @@ def rasterize(means3d: torch.Tensor, cov3d: torch.Tensor,
     out_color = img[0:3] + t_img * bg_color[:, None, None]
     out_normal = img[4:7]
     out_rough = img[10:11] + (t_img if inference else 0.0)  # forward.cu:612-616
-    out_depth = _quotient(img[12:13], o)
-    out_pos = _quotient(img[13:16], o)
+    out_depth = _ref_quotient(img[12:13], o)
+    out_pos = _ref_quotient(img[13:16], o)
 
     # View-space normal, normalised in the kernel with no backward path
     # (forward.cu:600-605).

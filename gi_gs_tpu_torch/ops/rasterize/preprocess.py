@@ -6,6 +6,14 @@ low-pass, near-plane cull at 0.2, screen radius, tile rect and
 
 Scalars that are f32 arrays in the JAX version (tan fov, focal) are f32
 0-d tensors here so every product rounds the same way.
+
+Plain differentiable torch: the reference's hand-written backward
+(backward.cu:145-401) is the chain rule of these ops, including its
+gradient gates (the +-1.3 tan-fov clamp, the sqrt(max(0.1, .)) guard).
+Clamps of differentiated values use torch.minimum/maximum, whose gradient
+at a tie splits like jnp.clip/maximum (torch.clamp passes it whole); the
+NaN guards on the divisions keep the unselected branches of culled rows
+finite in the backward.
 """
 from __future__ import annotations
 
@@ -89,11 +97,16 @@ def preprocess(means3d: torch.Tensor, cov3d: torch.Tensor,
                w2c: torch.Tensor, full_proj: torch.Tensor,
                tanfovx: float, tanfovy: float, width: int, height: int,
                cfg: RasterConfig,
-               opacity: Optional[torch.Tensor] = None) -> Preprocessed:
+               opacity: Optional[torch.Tensor] = None,
+               ndc_offset: Optional[torch.Tensor] = None) -> Preprocessed:
     """Project Gaussians and compute screen-space footprints. With
-    `opacity`, the emission rect uses the opacity-aware radius
-    sigma * sqrt(2 ln(op / alpha_min)) intersected with the reference's
-    3-sigma rect; the reported radius stays ceil(3 sigma)."""
+    `opacity` (detached: it feeds the tile cull only), the emission rect
+    uses the opacity-aware radius sigma * sqrt(2 ln(op / alpha_min))
+    intersected with the reference's 3-sigma rect; the reported radius
+    stays ceil(3 sigma). `ndc_offset` [N, 2] is a zero-valued hook whose
+    gradient is the reference's screen-space gradient (the densification
+    statistic): d(px)/d(ndc_offset_x) = W/2, the CUDA ddelx_dx factor
+    (backward.cu:505-506,616-617)."""
     dev = means3d.device
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
     tanfovx, tanfovy = f32(tanfovx), f32(tanfovy)
@@ -125,16 +138,16 @@ def preprocess(means3d: torch.Tensor, cov3d: torch.Tensor,
     conic = torch.stack([conic_xx, conic_xy, conic_yy], dim=-1)
 
     mid = 0.5 * (covxx + covyy)
-    disc = torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+    disc = torch.sqrt(torch.maximum(mid * mid - det, f32(0.1)))
     lambda1 = mid + disc
-    sigma = torch.sqrt(torch.clamp(torch.maximum(lambda1, mid - disc),
-                                   min=1e-8))
+    sigma = torch.sqrt(torch.maximum(torch.maximum(lambda1, mid - disc),
+                                     f32(1e-8)))
     radius_f = torch.ceil(3.0 * sigma)
 
     if opacity is None:
         op = torch.ones(means3d.shape[0], dtype=torch.float32, device=dev)
     else:
-        op = opacity.reshape(-1)
+        op = opacity.detach().reshape(-1)
     s_cut = torch.sqrt(2.0 * torch.log(
         torch.clamp(op, min=cfg.alpha_min) / cfg.alpha_min))
     s_cut = torch.where(op < cfg.alpha_min, torch.zeros_like(s_cut),
@@ -143,6 +156,9 @@ def preprocess(means3d: torch.Tensor, cov3d: torch.Tensor,
 
     px = ndc2pix(hx * p_w, width)
     py = ndc2pix(hy * p_w, height)
+    if ndc_offset is not None:
+        px = px + ndc_offset[:, 0] * (0.5 * width)
+        py = py + ndc_offset[:, 1] * (0.5 * height)
     means2d = torch.stack([px, py], dim=-1)
 
     def to_i32(v, hi):

@@ -58,6 +58,11 @@ def sh_to_rgb(deg: int, sh: torch.Tensor, means: torch.Tensor,
     dir = normalize(mean - campos), +0.5 offset, clamp at 0."""
     d = means - campos
     n2 = (d * d).sum(-1, keepdim=True)
-    d = d * torch.rsqrt(torch.clamp(n2, min=1e-24))
-    return torch.clamp(eval_sh(deg, sh, d) + 0.5, min=0.0)
+    d = d * torch.rsqrt(torch.maximum(n2, torch.full_like(n2, 1e-24)))
+    rgb = eval_sh(deg, sh, d) + 0.5
+    return torch.maximum(rgb, rgb.new_zeros(()))
 
+
+def rgb_to_sh0(rgb: torch.Tensor) -> torch.Tensor:
+    """Inverse of the DC term mapping (utils/sh_utils.py RGB2SH)."""
+    return (rgb - 0.5) / SH_C0

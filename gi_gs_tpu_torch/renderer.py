@@ -3,8 +3,9 @@ gaussian_renderer render() plus the filter chain of
 GaussianRasterizer.forward): activations -> SH colours -> rasterize ->
 median-blurred depth -> depth->normal -> bilateral blur -> median-blurred
 positions -> SSAO -> normal post-processing. Same output keys as the JAX
-renderer. Forward only; the JAX stop-gradients have no counterpart here
-because the render path runs under `torch.inference_mode()`."""
+renderer. Differentiable with respect to the Gaussian parameters (phase-1
+training differentiates it); serving callers hold `torch.inference_mode()`
+themselves. The JAX stop-gradients are detaches here."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -23,7 +24,7 @@ from .utils.device import resolve_device
 
 def _norm_where_nonzero(v: torch.Tensor) -> torch.Tensor:
     n2 = (v * v).sum(dim=0, keepdim=True)
-    unit = v * torch.rsqrt(torch.clamp(n2, min=1e-24))
+    unit = v * torch.rsqrt(torch.maximum(n2, torch.full_like(n2, 1e-24)))
     return torch.where(n2 > 0, unit, v)
 
 
@@ -31,7 +32,9 @@ def _derive_maps(out, camera: Camera, derive_normal: bool):
     """Normals from the median-blurred depth (bilateral-blurred) and the
     median-blurred view positions (__init__.py:475-537)."""
     if derive_normal:
-        depth_filter = image_utils.median_blur_3x3(out.depth)[0]
+        # The reference runs depth_to_normal outside autograd: detach the
+        # depth input (JAX renderer.py:72-76).
+        depth_filter = image_utils.median_blur_3x3(out.depth.detach())[0]
         normal_from_depth, depth_pos = screen_space.depth_to_normal(
             depth_filter, camera.w2c, camera.fx, camera.fy)
     else:
@@ -41,15 +44,17 @@ def _derive_maps(out, camera: Camera, derive_normal: bool):
             image_utils.median_blur_3x3(depth_pos))
 
 
-@torch.inference_mode()
 def render(camera: Camera, pc: GaussianParams, bg_color: torch.Tensor,
            cfg: RasterConfig = RasterConfig(), gi: GIParams = GIParams(),
            scaling_modifier: float = 1.0,
            override_color: Optional[torch.Tensor] = None,
            inference: bool = False, pad_normal: bool = False,
-           derive_normal: bool = True, compute_occlusion: bool = True
+           derive_normal: bool = True, compute_occlusion: bool = True,
+           ndc_offset: Optional[torch.Tensor] = None
            ) -> Dict[str, torch.Tensor]:
-    """Full G-buffer render of one view on the device of `pc`."""
+    """Full G-buffer render of one view on the device of `pc`.
+    ndc_offset: optional [N, 2] zeros; its gradient is the reference's
+    screenspace_points.grad, the densification statistic."""
     resolve_device(pc.device)
     H, W = camera.height, camera.width
     with timing.stage("activations", pc.device):
@@ -62,7 +67,7 @@ def render(camera: Camera, pc: GaussianParams, bg_color: torch.Tensor,
     out = rasterize(
         pc.xyz, cov3d, opacity, color, *attrs, camera.w2c, camera.full_proj,
         camera.tanfovx, camera.tanfovy, H, W, bg_color, cfg,
-        inference=inference)
+        ndc_offset=ndc_offset, inference=inference)
 
     with timing.stage("derive", pc.device):
         normal_from_depth, depth_pos_filter = _derive_maps(

@@ -60,6 +60,26 @@ def make_camera(R: np.ndarray, T: np.ndarray, fovx: float, fovy: float,
                   height=int(height))
 
 
+def camera_to_json(idx: int, record) -> dict:
+    """SIBR-compatible cameras.json entry (ref camera_to_JSON,
+    utils/camera_utils.py:89-109); `record` is a dataset CameraRecord."""
+    Rt = np.zeros((4, 4))
+    Rt[:3, :3] = record.R.transpose()
+    Rt[:3, 3] = record.T
+    Rt[3, 3] = 1.0
+    W2C = np.linalg.inv(Rt)
+    return {
+        "id": idx,
+        "img_name": record.name,
+        "width": record.width,
+        "height": record.height,
+        "position": W2C[:3, 3].tolist(),
+        "rotation": [r.tolist() for r in W2C[:3, :3]],
+        "fy": math_utils.fov2focal(record.fovy, record.height),
+        "fx": math_utils.fov2focal(record.fovx, record.width),
+    }
+
+
 def canonical_rays(camera: Camera) -> torch.Tensor:
     """Per-pixel camera-space rays (x/fx, y/fy, 1) at pixel centres,
     flattened to [H*W, 3] (ref Scene.get_canonical_rays)."""

@@ -1,6 +1,9 @@
-"""Image metrics and 3x3 filters on channel-first [C, H, W] tensors (port
-of the parts of gi_gs_tpu/utils/image_utils.py the render path uses:
-PSNR, SSIM, kornia-style median and bilateral blurs)."""
+"""Image metrics, losses and small-window filters on channel-first
+[C, H, W] tensors (port of gi_gs_tpu/utils/image_utils.py: L1, PSNR,
+SSIM, kornia-style median and bilateral blurs, erosion, average pooling).
+Everything here is differentiable; the median network and the clamps of
+differentiated values use torch.minimum/maximum, whose gradient at a tie
+splits like jnp.minimum/maximum."""
 from __future__ import annotations
 
 import math
@@ -8,6 +11,10 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return (x - y).abs().mean()
 
 
 def psnr(img: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -98,4 +105,19 @@ def bilateral_blur_3x3(img: torch.Tensor, sigma_color: float = 1.0,
                      ).astype(np.float32)
     w = color_w * torch.as_tensor(space_w, device=img.device
                                   )[:, None, None, None]
-    return (stack * w).sum(dim=0) / torch.clamp(w.sum(dim=0), min=1e-8)
+    ws = w.sum(dim=0)
+    return (stack * w).sum(dim=0) / torch.maximum(ws, torch.full_like(ws, 1e-8))
+
+
+def erode(mask: torch.Tensor, kernel_size: int = 7) -> torch.Tensor:
+    """Min-pool erosion of a [1, H, W] float mask, 'same' padding of 1s
+    (kornia.morphology.erosion with an all-ones kernel, ref
+    train.py:134-136)."""
+    pad = kernel_size // 2
+    padded = F.pad(mask[None], (pad, pad, pad, pad), value=1.0)
+    return -F.max_pool2d(-padded, kernel_size, stride=1)[0]
+
+
+def avg_pool2d(img: torch.Tensor, k: int) -> torch.Tensor:
+    """Non-overlapping average pool of [C, H, W] (F.avg_pool2d)."""
+    return F.avg_pool2d(img[None], k, stride=k)[0]

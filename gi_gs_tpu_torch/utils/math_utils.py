@@ -1,6 +1,7 @@
-"""Core math helpers used by the render path (port of
-gi_gs_tpu/utils/math_utils.py): normalisation, the quaternion-built 3D
-covariance, camera matrices (numpy, host side), colour transforms."""
+"""Core math helpers (port of gi_gs_tpu/utils/math_utils.py):
+quaternions, normalisation, the quaternion-built 3D covariance,
+activations, the learning-rate schedule, camera matrices (numpy, host
+side), colour transforms."""
 from __future__ import annotations
 
 import math
@@ -11,12 +12,25 @@ import torch
 _F32_EPS = float(np.finfo(np.float32).eps)
 
 
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (w, x, y, z) -> [..., 3, 3] rotation matrix of the
+    un-normalised quaternion (computeCov3D, forward.cu:127-147)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    r0 = torch.stack([1.0 - 2.0 * (y * y + z * z), 2.0 * (x * y - w * z),
+                      2.0 * (x * z + w * y)], dim=-1)
+    r1 = torch.stack([2.0 * (x * y + w * z), 1.0 - 2.0 * (x * x + z * z),
+                      2.0 * (y * z - w * x)], dim=-1)
+    r2 = torch.stack([2.0 * (x * z - w * y), 2.0 * (y * z + w * x),
+                      1.0 - 2.0 * (x * x + y * y)], dim=-1)
+    return torch.stack([r0, r1, r2], dim=-2)
+
+
 def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12
               ) -> torch.Tensor:
     """v * rsqrt(max(|v|^2, eps^2)) — finite at v == 0 (capacity-padded
     dead Gaussians hold zero vectors)."""
     n2 = (v * v).sum(dim=dim, keepdim=True)
-    return v * torch.rsqrt(torch.clamp(n2, min=eps * eps))
+    return v * torch.rsqrt(torch.maximum(n2, torch.full_like(n2, eps * eps)))
 
 
 def build_covariance_3d(scaling: torch.Tensor, rotation_raw: torch.Tensor,
@@ -48,6 +62,37 @@ def build_covariance_3d(scaling: torch.Tensor, rotation_raw: torch.Tensor,
         m10 * m20 + m11 * m21 + m12 * m22,
         m20 * m20 + m21 * m21 + m22 * m22,
     ], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Activations and the learning-rate schedule
+# ---------------------------------------------------------------------------
+
+def inverse_sigmoid(x):
+    """log(x / (1 - x)). A python number is divided in double precision
+    and the log taken in f32, as `jnp.log` does with a python quotient."""
+    if torch.is_tensor(x):
+        return torch.log(x / (1.0 - x))
+    return torch.log(torch.tensor(x / (1.0 - x), dtype=torch.float32))
+
+
+def expon_lr(step, lr_init, lr_final, lr_delay_steps=0, lr_delay_mult=1.0,
+             max_steps=1_000_000) -> float:
+    """Log-linear interpolated learning rate with optional delayed warm-up
+    (get_expon_lr_func), evaluated in f32 like the JAX version; 0 for
+    step < 0. Returns the f32 value as a python float."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    step = f32(step)
+    t = torch.clamp(step / max_steps, 0.0, 1.0)
+    log_lerp = torch.exp(torch.log(f32(lr_init)) * (1 - t)
+                         + torch.log(f32(lr_final)) * t)
+    if lr_delay_steps > 0:
+        delay_rate = lr_delay_mult + (1 - lr_delay_mult) * torch.sin(
+            0.5 * math.pi * torch.clamp(step / lr_delay_steps, 0.0, 1.0))
+    else:
+        delay_rate = 1.0
+    lr = delay_rate * log_lerp
+    return 0.0 if float(step) < 0 else float(lr)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Opt-in per-stage wall clock of the render path. Off by default (a
-`stage` is then a no-op); when on, each stage synchronises the device at
-its start and end, so its seconds are the device work of that stage."""
+"""Opt-in per-stage wall clock of the render and training paths. Off by
+default (a `stage` is then a no-op); when on, each stage synchronises the
+device at its start and end, so its seconds are the device work of that
+stage."""
 from __future__ import annotations
 
 import contextlib
@@ -22,6 +23,17 @@ def stop() -> Dict[str, float]:
     global _totals
     out, _totals = _totals or {}, None
     return out
+
+
+@contextlib.contextmanager
+def suspended():
+    """Leave the work inside the block out of the stage totals."""
+    global _totals
+    saved, _totals = _totals, None
+    try:
+        yield
+    finally:
+        _totals = saved
 
 
 @contextlib.contextmanager

@@ -25,6 +25,10 @@ def test_port_imports_without_jax_or_reference_package():
     mods = _modules()
     assert "gi_gs_tpu_torch.cli.render_cli" in mods
     assert "gi_gs_tpu_torch.ops.cuda_kernels" in mods
+    assert {"gi_gs_tpu_torch.cli.train_cli", "gi_gs_tpu_torch.ops.knn",
+            "gi_gs_tpu_torch.train.losses", "gi_gs_tpu_torch.train.optim",
+            "gi_gs_tpu_torch.train.densify",
+            "gi_gs_tpu_torch.train.trainer"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'gi_gs_tpu'):\n"
@@ -45,19 +49,26 @@ def test_port_imports_without_jax_or_reference_package():
 def test_no_kernel_is_built_at_import():
     from gi_gs_tpu_torch.ops import cuda_kernels as ck
     assert ck._lib is None
-    assert set(ck.launches) == {"expand", "composite_fwd", "gi_march",
-                                "patch_fwd"}
+    assert set(ck.launches) == {"expand", "composite_fwd", "composite_bwd",
+                                "gi_march", "patch_fwd"}
 
 
 def test_cuda_default_entry_points_raise_without_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the CUDA default is valid")
-    from gi_gs_tpu_torch.cli import render_cli
-    from gi_gs_tpu_torch.models.gaussians import FIELDS, params_from_numpy
+    from gi_gs_tpu_torch.cli import render_cli, train_cli
+    from gi_gs_tpu_torch.models.gaussians import (FIELDS, create_from_points,
+                                                  params_from_numpy)
     from gi_gs_tpu_torch.scene.cameras import make_camera
     with pytest.raises(RuntimeError, match="no CUDA device"):
         render_cli.main(["--model_path", str(tmp_path),
                          "--source_path", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--model_path", str(tmp_path),
+                        "--source_path", str(tmp_path)])
+    pts = np.zeros((4, 3), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_from_points(pts, pts, 8)
     fields = {k: np.zeros((4, 3), np.float32) for k in FIELDS}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy(fields, 0, 3)

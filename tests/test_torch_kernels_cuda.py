@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions on the card
+"""The five CUDA kernels against their plain PyTorch versions on the card
 (csrc/*.cu, built at first use). Marked `cuda`: they skip without a GPU.
 On a machine with one (without JAX, so skip the tests' conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py"""
@@ -63,6 +63,34 @@ def test_composite_matches_plain(dev):
                                             b.tile_count, cfg, grid)
     torch.testing.assert_close(ka, pa, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(kt, pt, rtol=1e-5, atol=1e-6)
+
+
+def test_composite_bwd_matches_plain(dev):
+    """Gradient rows and the per-Gaussian reduction against the plain
+    backward, at the JAX test tolerance (rtol 2e-4, atol 2e-5 x the
+    largest column maximum): the kernel sums each instance's pixels in
+    warp order, the plain version per chunk."""
+    cfg, pre, op, feats, (h, w) = _scene(dev, seed=2)
+    b = binning.bin_and_sort(pre, h, w, cfg)
+    table = torch.cat([pre.means2d, pre.conic, op, feats[:, :11],
+                       pre.depth[:, None], pre.pos_view], 1).contiguous()
+    grid = cfg.grid(h, w)
+    acc, ft = composite.composite_fwd(table, b.ids, b.tile_start,
+                                      b.tile_count, cfg, grid)
+    g = torch.Generator(device=dev).manual_seed(3)
+    g_acc = torch.randn(acc.shape, device=dev, generator=g)
+    g_t = torch.randn(ft.shape, device=dev, generator=g)
+    args = (table, b.ids, b.tile_start, b.tile_count,
+            acc[:, :4].contiguous(), ft, g_acc, g_t, cfg, grid, (h, w))
+    before = ck.launches["composite_bwd"]
+    k = composite.composite_bwd(*args)
+    assert ck.launches["composite_bwd"] == before + 1
+    p = composite._composite_bwd_plain(*args)
+    red = lambda r: composite.reduce_sorted_instance_grads(r, b.inv_perm,
+                                                           b.offsets)
+    for got, want in ((k, p), (red(k), red(p))):
+        scale = float(want.abs().amax(dim=0).max()) + 1e-3
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5 * scale)
 
 
 @pytest.mark.parametrize("with_rgb", [False, True])
