@@ -10,14 +10,18 @@ Phases (any failure exits non-zero):
                800x800, 300k alive Gaussians in capacity 2^19 (SH degree 3,
                random BRDF attributes), a random 256^2 cubemap, written as
                the port's chkpnt*.pt + cfg_args.json
-  4. kernels   each serving kernel against its plain PyTorch version on the
-               card at the shapes the main path gives it, with times and
-               bounds; a kernel's ms is its launches alone (CUDA events
-               around the C launcher, `cuda_kernels.timed`), the plain ms
-               the whole plain function
+  4. kernels   each serving kernel, and the phase-2 kernels
+               gi_march_coherent (SSAO and SSR on the same 800x800
+               G-buffer, default GIParams) and patch_bwd (the three patch
+               levels of the 256 light, random cotangents), against its
+               plain PyTorch version on the card at the shapes the main
+               path gives it, with times and bounds; a kernel's ms is its
+               launches alone (CUDA events around the C launcher,
+               `cuda_kernels.timed`), the plain ms the whole plain function
   5. slice     the port's render CLI (`render_cli.main`) over the test
                views with every launch count set to 0 just before; every
-               serving kernel must have launched. Per-view and per-stage
+               serving kernel must have launched, the coherent march not
+               (serving runs the exact march). Per-view and per-stage
                times.
   6. parity    the whole render_pbr_view on CUDA tensors (kernels) against
                CPU tensors (plain versions) on a small scene
@@ -35,6 +39,18 @@ Phases (any failure exits non-zero):
                (cap_tile grown past the densest tile), random cotangents
   9. train parity  one phase-1 loss and its gradients on CUDA tensors
                (kernels) against CPU tensors (plain versions) at 64x48
+ 10. phase 2   the train CLI from phase 7's final checkpoint
+               (--start_checkpoint, --pbr_iteration 30, 20 deferred-PBR
+               steps, --indirect), launch counts set to 0 just before and
+               read around every step: per step gi_march_coherent 2,
+               patch_fwd 3, patch_bwd 3, expand, composite_fwd and
+               composite_bwd 1 each, the exact gi_march 0. Per-step and
+               per-stage times, peak memory, the cubemap's minimum; then a
+               device profile of 3 phase-2 steps
+ 11. phase-2 parity  one phase-2 loss (env-TV included) and every gradient
+               (Gaussian fields, ndc, cubemap) on CUDA tensors against CPU
+               tensors at 160x48 (one full 128-column march block and a
+               partial one), light_base_res 64 (one patch level)
 Then the kernel table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -65,6 +81,7 @@ N_VIEWS = 3
 N_GAUSSIANS = 300_000
 N_TRAIN_VIEWS = 8
 TRAIN_STEPS = 30
+PHASE2_STEPS = 20
 
 
 def fail(msg: str) -> None:
@@ -314,6 +331,42 @@ def kernel_phase(torch, dev, cfg, state, cam, light_arrays, spec):
               4 * H * W * (6 + 1) + 4 * H * W * (9 + 4) + 2 * nd * 16, flops,
               directions=nd, live_samples=int(flops / 20.0),
               calls="ssao (no rgb) + ssr (rgb)")
+        # -- gi_march_coherent (phase 2's march: SSAO and SSR, default
+        # GIParams) on the same G-buffer; kernel and plain read one table
+        tab = ss.direction_table(gi)[0]
+        tab_t = torch.as_tensor(tab, device=dev)
+        keys = ss.centre_offset_table(nv, pos, tab_t, cam.fx, cam.fy, gi)
+        table_ms = cuda_ms(lambda: ss.centre_offset_table(
+            nv, pos, tab_t, cam.fx, cam.fy, gi), 5)
+        errs, oks, ms, pms, samples = [], [], 0.0, 0.0, 0
+        for r in (None, rgb):
+            ko, kd = ss.gi_march_coherent(nv, pos, r, cam.fx, cam.fy, gi)
+            work = {}
+            po, pd = ss._gi_march_coherent_plain(nv, pos, r, keys, gi,
+                                                 work=work)
+            torch.cuda.synchronize()
+            errs.append(max(float((ko - po).abs().max()),
+                            float((kd - pd).abs().max())))
+            oks.append(torch.allclose(ko, po, rtol=1e-5, atol=1e-4) and
+                       torch.allclose(kd, pd, rtol=1e-5, atol=1e-4))
+            ms += kernel_ms(lambda: ss.gi_march_coherent(
+                nv, pos, r, cam.fx, cam.fy, gi), "gi_march_coherent", 5)
+            pms += cuda_ms(lambda: ss._gi_march_coherent_plain(
+                nv, pos, r, keys, gi), 1)
+            samples += work["samples"]
+        # per live sample: svz's 5 flops per direction are amortised,
+        # j * zs, the multiply-add of spz, two compares with their adds,
+        # and for a hit 4 multiply-adds: about 8
+        entry("gi_march_coherent", "gi_gs_tpu_torch/csrc/gi_march_coherent.cu",
+              "gi_gs_tpu/ops/pallas_gi.py:522 (mode=coherent; body "
+              "pallas_gi.py:260-373)", max(errs), all(oks),
+              "rtol 1e-5, atol 1e-4 (same keys and hits; sums over the "
+              "directions in another order)", ms, pms,
+              4 * H * W * (3 + 1 + 3) * 2 + 4 * H * W * (1 + 3) +
+              2 * (keys.numel() * 4 + nd * 16), 8.0 * samples,
+              directions=nd, steps=keys.shape[3], live_samples=samples,
+              keys_shape=list(keys.shape), offset_table_ms=table_ms,
+              calls="ssao (no rgb) + ssr (rgb)")
         # -- patch_fwd (every patch level of the prefilter) --------------------
         ops, _ = cm.level_operators(spec, light_arrays)
         err, ms, pms, nbytes, flops, shapes = 0.0, 0.0, 0.0, 0.0, 0.0, []
@@ -337,6 +390,29 @@ def kernel_phase(torch, dev, cfg, state, cam, light_arrays, spec):
               "gi_gs_tpu/ops/pallas_patch.py:115", err, err <= 1e-5,
               "1e-5 absolute (same offset order, no FMA)", ms, pms,
               nbytes, flops, levels=shapes)
+        # -- patch_bwd (the transpose, every patch level, random cotangents)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        err, ms, pms, nbytes, flops = 0.0, 0.0, 0.0, 0.0, 0.0
+        for lvl, sp, op in zip(cm.mip_chain(state.cubemap), spec, ops):
+            if sp[0] == "dense":
+                continue
+            (src, Wt), h = op, sp[1]
+            R, Pp = lvl.shape[1], 2 * h + 1
+            g = torch.randn(6, 3, R, R, device=dev, generator=gen)
+            ko = cm.patch_bwd(Wt, g, R, Pp, h)
+            po = cm._patch_bwd_plain(Wt, g, h)
+            torch.cuda.synchronize()
+            err = max(err, float((ko - po).abs().max()))
+            ms += kernel_ms(lambda: cm.patch_bwd(Wt, g, R, Pp, h),
+                            "patch_bwd", 10)
+            pms += cuda_ms(lambda: cm._patch_bwd_plain(Wt, g, h), 1)
+            nbytes += Wt.numel() * 4 + g.numel() * 4 + po.numel() * 4
+            flops += 6.0 * R * R * Pp * Pp * 3 * 2
+        entry("patch_bwd", "gi_gs_tpu_torch/csrc/patch_bwd.cu",
+              "gi_gs_tpu/ops/pallas_patch.py:146 (body pallas_patch.py:61-80)",
+              err, err <= 1e-5,
+              "1e-5 absolute (same products added in the same offset "
+              "order, no FMA)", ms, pms, nbytes, flops, levels=shapes)
     return entries
 
 
@@ -353,11 +429,11 @@ TPU_KERNELS = [
     ("gi_gs_tpu/ops/pallas_gi.py:522", "_march_pallas(mode=exact)",
      "ported: gi_march"),
     ("gi_gs_tpu/ops/pallas_gi.py:522", "_march_pallas(mode=coherent)",
-     "not yet (phase-2 training)"),
+     "ported: gi_march_coherent"),
     ("gi_gs_tpu/ops/pallas_patch.py:115", "patch_apply_fwd",
      "ported: patch_fwd"),
     ("gi_gs_tpu/ops/pallas_patch.py:146", "patch_apply_bwd",
-     "not yet (phase-2 training)"),
+     "ported: patch_bwd"),
 ]
 
 
@@ -482,6 +558,9 @@ def main() -> None:
     missing = [k for k in SERVING_KERNELS if launches[k] == 0]
     if missing:
         fail(f"the serving path launched no {missing}")
+    if launches["gi_march_coherent"]:
+        fail("the render CLI ran the coherent march; serving runs the exact "
+             "one")
     log("  per-view ms: " + ", ".join(f"{1e3 * s:.1f}"
                                       for s in res["view_seconds"]))
     once = ("prefilter_tables", "build_mips")
@@ -533,12 +612,25 @@ def main() -> None:
     log(f"[train parity] phase-1 loss and gradients CUDA vs CPU plain at "
         f"64x48: {err} ({time.time() - t0:.1f} s)")
 
+    # -- 10. phase 2: the train CLI past --pbr_iteration, counting launches --
+    p2_launches = phase2_phase(torch, dev, ck, timing, work, train_data)
+
+    # -- 11. phase-2 parity: one phase-2 gradient, kernels vs plain ----------
+    t0 = time.time()
+    err = phase2_parity_phase(torch, dev, config_mod, params_from_numpy,
+                              np.random.RandomState(args.seed + 4))
+    log(f"[phase-2 parity] phase-2 loss and gradients CUDA vs CPU plain at "
+        f"160x48: {err} ({time.time() - t0:.1f} s)")
+
     # each kernel's launches from the run of the path it serves: the render
-    # CLI for the serving kernels, the train CLI for composite_bwd
+    # CLI for the serving kernels, the phase-1 train CLI for composite_bwd,
+    # the phase-2 train CLI for gi_march_coherent and patch_bwd
     for e in entries:
         e["launches"] = (train_launches if e["name"] in TRAINING_KERNELS
+                         else p2_launches if e["name"] in PHASE2_KERNELS
                          else launches)[e["name"]]
         e["launches_in_training"] = train_launches[e["name"]]
+        e["launches_in_phase2"] = p2_launches[e["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     table = {"kernels": [dict({k: e[k] for k in keys},
@@ -559,6 +651,11 @@ def main() -> None:
 
 SERVING_KERNELS = ("expand", "composite_fwd", "gi_march", "patch_fwd")
 TRAINING_KERNELS = ("composite_bwd",)
+PHASE2_KERNELS = ("gi_march_coherent", "patch_bwd")
+# launches of one phase-2 step with --indirect at light_base_res 256
+PHASE2_STEP_LAUNCHES = {"expand": 1, "composite_fwd": 1, "composite_bwd": 1,
+                        "gi_march": 0, "gi_march_coherent": 2,
+                        "patch_fwd": 3, "patch_bwd": 3}
 
 
 def train_phase(torch, dev, ck, timing, work_dir, rng):
@@ -643,15 +740,15 @@ def train_phase(torch, dev, ck, timing, work_dir, rng):
         fail("no densification or no opacity reset in the training run")
     with open(os.path.join(model, f"eval_{TRAIN_STEPS}.json")) as f:
         log(f"  eval_{TRAIN_STEPS}.json {json.load(f)}")
-    profile_steps(torch, dev, res, data)
+    profile_steps(torch, dev, res, data, phase2=False)
     return launches, res, data
 
 
-def profile_steps(torch, dev, res, data, n: int = 3):
-    """Device time by operation over `n` phase-1 steps on the trained
-    state (one train view, no densification), with torch.profiler: the
-    ops with the most device time, and the device's busy share of the
-    wall time."""
+def profile_steps(torch, dev, res, data, phase2: bool, n: int = 3):
+    """Device time by operation over `n` steps of the phase on the trained
+    state (one train view, iteration 1: no densification), with
+    torch.profiler: the ops with the most device time, and the device's
+    busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
     from gi_gs_tpu_torch.scene.dataset import load_scene
     from gi_gs_tpu_torch.train import optim, trainer
@@ -661,8 +758,10 @@ def profile_steps(torch, dev, res, data, n: int = 3):
     image = torch.as_tensor(rec.image, device=dev)
     alpha = torch.as_tensor(rec.alpha, device=dev)
     bg = torch.zeros(3, device=dev)
-    step = trainer.make_phase1_step(cfg, 1.0,
-                                    optim.build_optimizer(cfg.opt, 1.0))
+    tx = optim.build_optimizer(cfg.opt, 1.0)
+    step = (trainer.make_phase2_step(cfg, 1.0, tx,
+                                     optim.build_light_optimizer(cfg.opt))
+            if phase2 else trainer.make_phase1_step(cfg, 1.0, tx))
     state = res["state"]
     state, _ = step(state, cam, image, alpha, bg, 1)
     torch.cuda.synchronize()
@@ -684,7 +783,8 @@ def profile_steps(torch, dev, res, data, n: int = 3):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    log(f"[train profile] {n} steps: {wall:.1f} ms per step unprofiled; "
+    log(f"[{'phase-2' if phase2 else 'train'} profile] {n} steps: "
+        f"{wall:.1f} ms per step unprofiled; "
         f"device busy {busy:.1f} ms per step in the profiled steps "
         f"({100 * busy / wall:.0f}% of the unprofiled step); "
         f"{sum(r[2] for r in rows):.0f} device events per step")
@@ -824,6 +924,164 @@ def train_parity_phase(torch, dev, config_mod, params_from_numpy, rng):
             f"{worst[k]:.2e} of its largest")
 
 
+def phase2_phase(torch, dev, ck, timing, work_dir, data):
+    """The train CLI past --pbr_iteration on the card: phase 7's final
+    checkpoint (iteration 30) trains PHASE2_STEPS deferred-PBR steps with
+    --indirect at 800x800, light_base_res 256, then evaluates the PBR view
+    on the 2 test views. Launch counts are set to 0 just before the run
+    and read around every step (the step factory is wrapped), so each
+    step's launches are checked apart from the probe and the eval. Returns
+    the launch counts of the whole run."""
+    from gi_gs_tpu_torch.cli import train_cli
+    from gi_gs_tpu_torch.train import trainer
+    start = os.path.join(work_dir, "train_model", f"chkpnt{TRAIN_STEPS}.pt")
+    last = TRAIN_STEPS + PHASE2_STEPS
+    model = os.path.join(work_dir, "phase2_model")
+    per_step = []
+    make = trainer.make_phase2_step
+
+    def counted_factory(*a, **kw):
+        step = make(*a, **kw)
+
+        def counted(*sa, **skw):
+            before = dict(ck.launches)
+            out = step(*sa, **skw)
+            per_step.append({k: ck.launches[k] - before[k] for k in before})
+            return out
+        counted.light_tables = step.light_tables
+        return counted
+
+    trainer.make_phase2_step = counted_factory
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    timing.start()
+    t0 = time.time()
+    try:
+        res = train_cli.main([
+            "--source_path", data, "--eval", "--model_path", model,
+            "--start_checkpoint", start, "--pbr_iteration", str(TRAIN_STEPS),
+            "--iterations", str(last), "--indirect",
+            "--light_base_res", str(LIGHT_RES), "--test_iterations",
+            str(last), "--save_iterations", str(last)])
+    finally:
+        trainer.make_phase2_step = make
+    wall = time.time() - t0
+    stages = timing.stop()
+    launches = dict(ck.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = res["steps"]
+    ms = [1e3 * st["seconds"] for st in steps]
+    steady = ms[2:]
+    log(f"[phase 2] train_cli.main from chkpnt{TRAIN_STEPS}.pt, "
+        f"{PHASE2_STEPS} phase-2 steps (--indirect, light_base_res "
+        f"{LIGHT_RES}) at {SIZE}x{SIZE} in {wall:.1f} s (scene load, probe, "
+        f"prefilter tables, eval and checkpoint included); launches "
+        f"{launches}; peak device memory {peak:.2f} GiB")
+    log("  ms per step (device synchronised): " + ", ".join(
+        f"{m:.1f}" for m in ms))
+    log(f"  after 2 warm-up steps: mean {np.mean(steady):.2f}, min "
+        f"{min(steady):.2f}, max {max(steady):.2f} ms")
+    log("  stage ms per step (mean over steps, device synchronised at "
+        "stage ends): " + ", ".join(f"{k} {1e3 * v / PHASE2_STEPS:.2f}"
+                                   for k, v in stages.items()))
+    if [st["phase"] for st in steps] != [2] * PHASE2_STEPS:
+        fail(f"the run did not take {PHASE2_STEPS} phase-2 steps")
+    if len(per_step) != PHASE2_STEPS:
+        fail(f"{len(per_step)} counted phase-2 steps")
+    for i, got in enumerate(per_step):
+        want = {k: PHASE2_STEP_LAUNCHES[k] for k in got}
+        if got != want:
+            fail(f"phase-2 step {i + 1} launched {got}, expected {want}")
+    log(f"  launches per phase-2 step, every step: {per_step[0]}")
+    outside = {k: launches[k] - sum(st[k] for st in per_step)
+               for k in launches}
+    log(f"  launches outside the steps (probe and eval): {outside}")
+    if launches["gi_march"]:
+        fail("the phase-2 run launched the exact march")
+    if not all(math.isfinite(st["loss"]) for st in steps):
+        fail(f"non-finite phase-2 loss {[st['loss'] for st in steps]}")
+    cube = res["state"].cubemap
+    cmin = float(cube.min())
+    log(f"  cubemap min {cmin:.6f}, max {float(cube.max()):.4f}, finite "
+        f"{bool(torch.isfinite(cube).all())}; losses "
+        f"{[round(st['loss'], 5) for st in steps]}")
+    if cmin < 0 or not bool(torch.isfinite(cube).all()):
+        fail("the cubemap went negative or non-finite")
+    for name in (f"chkpnt{last}.pt", f"eval_{last}.json"):
+        if not os.path.exists(os.path.join(model, name)):
+            fail(f"phase-2 training did not write {name}")
+    with open(os.path.join(model, f"eval_{last}.json")) as f:
+        metrics = json.load(f)
+    log(f"  eval_{last}.json (PBR view) {metrics}")
+    if not math.isfinite(metrics["psnr"]):
+        fail("non-finite phase-2 eval")
+    profile_steps(torch, dev, res, data, phase2=True)
+    return launches
+
+
+def phase2_parity_phase(torch, dev, config_mod, params_from_numpy, rng):
+    """trainer.phase2_loss_and_grads with CUDA tensors (the kernels)
+    against the same inputs on the CPU (the plain versions) at 160x48,
+    default GIParams (the coherent march), --indirect, light_base_res 64.
+    Tolerance: loss to 1e-4 relative; every gradient (live slots, ndc, the
+    cubemap) within 1e-3 of the field's largest magnitude: the two
+    compositing orders may put a z-buffer value one ulp apart, which can
+    flip one ray's hit test (one direction weight, <= 0.0031 of a pixel's
+    occlusion or indirect light)."""
+    from gi_gs_tpu_torch.models import light as light_mod
+    from gi_gs_tpu_torch.scene.cameras import compute_view_dirs, make_camera
+    from gi_gs_tpu_torch.train import trainer
+    n, cap, W, H = 6000, 8192, 160, 48
+    fields = gaussian_fields(rng, n, cap)
+    d = fields["xyz"][:n] / np.linalg.norm(fields["xyz"][:n], axis=1,
+                                            keepdims=True)
+    fields["xyz"][:n] = d * 0.8
+    fields["scaling"][:n] = rng.uniform(-4.0, -2.8, (n, 3))
+    ys, xs = np.mgrid[0:H, 0:W] / W
+    img = np.stack([0.5 + 0.4 * np.sin(5 * xs + 3 * ys + p)
+                    for p in rng.uniform(0, 6, 3)]).astype(np.float32)
+    alpha = (np.hypot(xs - 0.5, (ys - 0.15) * 0.5) < 0.3)[None].astype(
+        np.float32)
+    cub = random_cubemap(rng, 64)
+    cfg = config_mod.Config()
+    cfg.train.light_base_res = 64
+    cfg.train.indirect = True
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        params = params_from_numpy(fields, 3, 3, device=device)
+        cam = make_camera(np.eye(3), np.array([0.0, 0.0, 3.0]), 1.6, 0.5, W,
+                          H, device=device)
+        t = lambda a: torch.as_tensor(a, device=device)
+        tables = light_mod.build_prefilter_tables(64, device=device)
+        loss, _, grads, ndc, lg = trainer.phase2_loss_and_grads(
+            cfg, tables, params, t(cub), cam, t(img), t(alpha),
+            torch.zeros(3, device=device), compute_view_dirs(cam))
+        grads = dict(grads, ndc=ndc)
+        outs.append((float(loss), {k: v.cpu() for k, v in grads.items()},
+                     lg.cpu()))
+    (lk, gk, ck_), (lp, gp, cp) = outs
+    if abs(lk - lp) > 1e-4 * abs(lp):
+        fail(f"phase-2 parity: loss {lk} vs {lp}")
+    alive = torch.as_tensor(fields["alive"])
+    pairs = {k: (gk[k][alive], gp[k][alive]) for k in gk}
+    pairs["cubemap"] = (ck_, cp)
+    worst = {}
+    for k, (a, b) in pairs.items():
+        scale = float(b.abs().max())
+        diff = float((a - b).abs().max())
+        worst[k] = diff / max(scale, 1e-30)
+        if not bool(torch.isfinite(a).all()) or diff > 1e-3 * scale:
+            fail(f"phase-2 parity: gradient of {k} differs by {diff} "
+                 f"(largest {scale})")
+    if float(cp.abs().max()) == 0 or float(gp["albedo"].abs().max()) == 0:
+        fail("phase-2 parity: no gradient reached the cubemap or albedo")
+    k = max(worst, key=worst.get)
+    return (f"loss {lk:.6f} vs {lp:.6f}; worst gradient {k} "
+            f"{worst[k]:.2e} of its largest; "
+            + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()))
+
+
 def parity_phase(torch, dev, config_mod, render_cli, params_from_numpy, rng):
     """render_pbr_view with CUDA tensors (the kernels) against the same
     inputs on the CPU (the plain versions). Tolerance as in
@@ -839,6 +1097,7 @@ def parity_phase(torch, dev, config_mod, render_cli, params_from_numpy, rng):
     fields["scaling"][:n] = rng.uniform(-4.0, -2.8, (n, 3))
     cub = random_cubemap(rng, 64)
     cfg = config_mod.Config()
+    cfg.gi = cfg.gi._replace(backend="pallas_exact")   # serving's march
     worst = {}
     outs = []
     for device in (dev, torch.device("cpu")):

@@ -148,18 +148,16 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: cuda)")
     args = parser.parse_args(argv)
-    # Eval runs the exact march whatever backend cfg_args.json saved, as
-    # the JAX CLI does; the port has no other march to opt into yet.
-    if args.backend not in (None, "pallas_exact", "jnp"):
-        raise NotImplementedError(
-            f"--backend {args.backend}: the port has only the exact march "
-            "(pallas_exact / jnp); the coherent march is ported with "
-            "phase-2 training")
     device = resolve_device(args.device)
     cfg = config_mod.load_cfg(args.model_path) \
         if os.path.exists(os.path.join(args.model_path or "",
                                        "cfg_args.json")) else config_mod.Config()
     cfg = config_mod.from_args(args, cfg)
+    if args.backend is None:
+        # Eval runs the exact march whatever backend cfg_args.json saved
+        # (the coherent march is a training-speed approximation), as the
+        # JAX CLI does; --backend pallas asks for the coherent one.
+        cfg.gi = cfg.gi._replace(backend="pallas_exact")
 
     ckpt_path = args.checkpoint
     if not ckpt_path:

@@ -1,15 +1,20 @@
-"""Training CLI, phase 1 (port of gi_gs_tpu/cli/train_cli.py:73-307; ref
-train.py:171-527): random camera order, photometric + normal losses,
-densification, periodic held-out evaluation, checkpoints and PLY.
+"""Training CLI (port of gi_gs_tpu/cli/train_cli.py:73-307; ref
+train.py:171-527): the two-phase schedule with random camera order.
+Phase 1 (iterations up to --pbr_iteration): photometric + normal losses
+on a random background if asked. Phase 2 (above it): deferred PBR against
+the learnable cubemap on a black background, SSAO with --indirect and SSR.
+Densification, periodic held-out evaluation (phase 2 through the PBR view
+with the training GI settings), checkpoints and PLY.
 
     python -m gi_gs_tpu_torch.cli.train_cli --source_path SCENE \
-        --model_path OUT [--device cpu] [--iterations N ...]
+        --model_path OUT [--device cpu] [--iterations N] \
+        [--pbr_iteration M --indirect ...]
 
-Same flags as the JAX CLI (`config.add_args`). Phase 2 (iterations above
---pbr_iteration) and data parallelism (--dp > 1) are not ported yet and
-raise NotImplementedError at startup, before any step. Writes
-cfg_args.json, cameras.json, eval_{it}.json, chkpnt{it}.pt (readable by
-the port's render CLI) and point_cloud/iteration_{it}/point_cloud.ply.
+Same flags as the JAX CLI (`config.add_args`). Data parallelism
+(--dp > 1) is not ported yet and raises NotImplementedError at startup,
+before any step. Writes cfg_args.json, cameras.json, eval_{it}.json,
+chkpnt{it}.pt (readable by the port's render CLI) and
+point_cloud/iteration_{it}/point_cloud.ply.
 """
 from __future__ import annotations
 
@@ -24,35 +29,48 @@ import numpy as np
 import torch
 
 from .. import config as config_mod
+from ..models import light as light_mod
 from ..models.gaussians import create_from_points
 from ..ops.rasterize.pipeline import bucket_cap_instances
 from ..renderer import render
 from ..scene.cameras import camera_to_json
 from ..scene.dataset import load_scene
 from ..train import trainer as trainer_mod
-from ..train.optim import build_optimizer
+from ..train.optim import build_light_optimizer, build_optimizer
 from ..utils import checkpoint as ckpt
 from ..utils import image_utils, timing
 from ..utils.device import resolve_device
+from .render_cli import render_pbr_view
 
 
 @torch.no_grad()
 @timing.suspended()
-def evaluate(cfg, state, records, max_views: int = 8) -> Dict:
-    """Held-out PSNR/SSIM of phase-1 renders (ref training_report,
-    train.py:553-818); left out of the per-stage step times."""
+def evaluate(cfg, state, records, light_tables=None, max_views: int = 8
+             ) -> Dict:
+    """Held-out PSNR/SSIM (ref training_report, train.py:553-818): the
+    Gaussian render in phase 1; in phase 2 (`light_tables` given: the
+    phase-2 step's prefilter tables) the PBR view with the training GI
+    settings and the light of `state.cubemap`. Left out of the per-stage
+    step times."""
     dev = state.params.device
     bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
                       else [0.0, 0.0, 0.0], device=dev)
+    light = None if light_tables is None else \
+        light_mod.build_mips_packed(state.cubemap, *light_tables)
     psnrs, ssims = [], []
     for rec in records[:max_views]:
         cam = rec.camera(dev)
         image = torch.as_tensor(rec.image, device=dev)
         alpha = torch.as_tensor(rec.alpha, device=dev)
         gt = torch.clamp(image * alpha + bg[:, None, None] * (1 - alpha), 0, 1)
-        res = render(cam, state.params, bg, cfg.raster, cfg.gi,
-                     derive_normal=False, compute_occlusion=False)
-        img = torch.clamp(res["render"], 0.0, 1.0)
+        if light is None:
+            img = render(cam, state.params, bg, cfg.raster, cfg.gi,
+                         derive_normal=False,
+                         compute_occlusion=False)["render"]
+        else:
+            img = render_pbr_view(cfg, state, cam, bg,
+                                  light=light)["render_rgb"]
+        img = torch.clamp(img, 0.0, 1.0)
         psnrs.append(float(image_utils.psnr(img, gt)))
         ssims.append(float(image_utils.ssim(img, gt)))
     return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims)),
@@ -60,7 +78,7 @@ def evaluate(cfg, state, records, max_views: int = 8) -> Dict:
 
 
 def main(argv=None):
-    parser = ArgumentParser(description="gi_gs_tpu_torch training (phase 1)")
+    parser = ArgumentParser(description="gi_gs_tpu_torch training")
     config_mod.add_args(parser)
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: cuda)")
@@ -68,11 +86,6 @@ def main(argv=None):
     cfg = config_mod.from_args(args)
     if not cfg.model.source_path or not cfg.model.model_path:
         raise ValueError("--source_path and --model_path are required")
-    if cfg.opt.iterations > cfg.train.pbr_iteration:
-        raise NotImplementedError(
-            f"--iterations {cfg.opt.iterations} > --pbr_iteration "
-            f"{cfg.train.pbr_iteration}: phase 2 (deferred PBR) is not ported "
-            "yet; it comes with the phase-2 training slice")
     if cfg.train.dp > 1:
         raise NotImplementedError(
             f"--dp {cfg.train.dp}: data-parallel training is not ported yet; "
@@ -103,6 +116,7 @@ def main(argv=None):
         first_iter = extra.get("iteration", 0)
         print(f"Loaded checkpoint {cfg.train.start_checkpoint} @ {first_iter}")
     tx = build_optimizer(cfg.opt, scene.cameras_extent)
+    ltx = build_light_optimizer(cfg.opt)
 
     # Instance capacity from a probe of the real splat-tile population; it
     # grows on overflow. An explicitly smaller --cap_instances is kept.
@@ -111,7 +125,18 @@ def main(argv=None):
                cfg.raster.cap_instances)
     cfg.raster = dataclasses.replace(cfg.raster, cap_instances=cap0)
     print(f"instance capacity bucket: {cap0}", flush=True)
-    step = trainer_mod.make_phase1_step(cfg, scene.cameras_extent, tx)
+    step_of_phase = {}
+
+    def get_step(phase2: bool):
+        """The phase's step, made at its first use (the phase-2 factory
+        builds the prefilter tables once). Both read cfg.raster at every
+        call, so capacity growth needs no new step."""
+        if phase2 not in step_of_phase:
+            step_of_phase[phase2] = (
+                trainer_mod.make_phase2_step(cfg, scene.cameras_extent, tx,
+                                             ltx, device) if phase2 else
+                trainer_mod.make_phase1_step(cfg, scene.cameras_extent, tx))
+        return step_of_phase[phase2]
 
     def grow_capacity(overflow: int):
         new_cap = bucket_cap_instances(cfg.raster.cap_instances + overflow,
@@ -157,17 +182,20 @@ def main(argv=None):
     for iteration in range(first_iter + 1, cfg.opt.iterations + 1):
         if iteration % 1000 == 0:
             state = state.replace(params=state.params.one_up_sh_degree())
-        if cfg.opt.random_background:
+        phase2 = iteration > cfg.train.pbr_iteration
+        if cfg.opt.random_background and not phase2:
             bg = torch.as_tensor(rng.rand(3).astype(np.float32), device=device)
         else:
             bg = bg_const
+        step = get_step(phase2)
         vi = next_view()
         t_step = time.perf_counter()
         state, aux = step(state, cams[vi], images[vi], alphas[vi], bg,
                           iteration)
         sync()
         steps.append({"iteration": iteration, "loss": float(aux.loss),
-                      "seconds": time.perf_counter() - t_step})
+                      "seconds": time.perf_counter() - t_step,
+                      "phase": 2 if phase2 else 1})
         # Capacity checks on the densify cadence as well as the report
         # cadence, so drop events off the report cadence are seen.
         if iteration % 100 == 0 or iteration == first_iter + 1 or \
@@ -209,7 +237,10 @@ def main(argv=None):
         if iteration in cfg.train.test_iterations and scene.test_cameras:
             n_eval = (len(scene.test_cameras)
                       if iteration == cfg.opt.iterations else 8)
-            metrics = evaluate(cfg, state, scene.test_cameras, max_views=n_eval)
+            metrics = evaluate(
+                cfg, state, scene.test_cameras,
+                get_step(True).light_tables if phase2 else None,
+                max_views=n_eval)
             print(f"[ITER {iteration}] eval: {metrics}", flush=True)
             with open(os.path.join(cfg.model.model_path,
                                    f"eval_{iteration}.json"), "w") as f:

@@ -6,9 +6,15 @@ The prefilter is linear in the texels with static weights. Levels up to
 32^2 (and the diffuse irradiance) are one dense [S, S] f32 matrix product;
 higher levels are a locally connected halo filter
 out[f, c, y, x] = sum_p W[f, p, y, x] * pad[f, c, y + dy, x + dx]
-over halo-padded faces (`_patch_tables`). That filter is the CUDA kernel
-`csrc/patch_fwd.cu` (`patch_fwd`) on CUDA tensors and `_patch_fwd_plain`
-on CPU tensors; the halo gather around it is torch.
+over halo-padded faces (`_patch_tables`). That filter is an autograd
+Function (`_PatchFilter`, JAX's custom VJP `_specular_apply_patch`): its
+forward is the CUDA kernel `csrc/patch_fwd.cu` (`patch_fwd`) on CUDA
+tensors and `_patch_fwd_plain` on CPU tensors, its backward the transpose
+`csrc/patch_bwd.cu` (`patch_bwd`) or `_patch_bwd_plain`; W is a constant
+table. The halo gather around it is torch, so autograd of its gathers
+scatters the border of the padded cotangent back (JAX's `_sap_bwd`
+segment sum; the interior is the identity). `cubemap_mip` is a Function
+too, with JAX's backward `_mip_bwd`.
 
 The numpy table builders are cached per (resolution, roughness); the
 prefilter tables are copied to the device once per light build, the small
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from ..utils.device import device_constant
+from ..utils.math_utils import clip
 from . import cuda_kernels as ck
 
 
@@ -131,8 +138,8 @@ def sample_cubemap_flat(cubemap: torch.Tensor, dx, dy, dz):
     v = (fy + 1.0) * 0.5 * R - 0.5
     u0 = torch.clamp(torch.floor(u), -1, R - 1)
     v0 = torch.clamp(torch.floor(v), -1, R - 1)
-    du = torch.clamp(u - u0, 0.0, 1.0)
-    dv = torch.clamp(v - v0, 0.0, 1.0)
+    du = clip(u - u0, 0.0, 1.0)
+    dv = clip(v - v0, 0.0, 1.0)
     E1 = R + 1
     idx = (face * E1 * E1 + (v0.to(torch.int64) + 1) * E1 +
            (u0.to(torch.int64) + 1))
@@ -153,12 +160,34 @@ def sample_cubemap(cubemap: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     return torch.stack([r, g, b], dim=-1).reshape(dirs.shape)
 
 
+def _texel_dirs_f32(res: int) -> np.ndarray:
+    return texel_dirs(res).astype(np.float32)
+
+
+class _CubemapMip(torch.autograd.Function):
+    """2x2 average pool per face whose backward is the reference's bilinear
+    redistribution (pbr/light.py:62-79; JAX cubemap.py:295-319): the
+    seamless bilinear sample of 0.25 * dout at the fine texel directions,
+    not the pool's transpose."""
+
+    @staticmethod
+    def forward(ctx, cubemap):
+        R = cubemap.shape[1]
+        c = cubemap.reshape(6, R // 2, 2, R // 2, 2, cubemap.shape[-1])
+        return 0.25 * (c[:, :, 0, :, 0] + c[:, :, 0, :, 1] +
+                       c[:, :, 1, :, 0] + c[:, :, 1, :, 1])
+
+    @staticmethod
+    def backward(ctx, dout):
+        R = 2 * dout.shape[1]
+        dirs = device_constant(_texel_dirs_f32, R, device=dout.device)
+        return sample_cubemap(dout * 0.25, dirs)
+
+
 def cubemap_mip(cubemap: torch.Tensor) -> torch.Tensor:
-    """2x2 average pool per face (pbr/light.py:54-79 forward)."""
-    R = cubemap.shape[1]
-    c = cubemap.reshape(6, R // 2, 2, R // 2, 2, cubemap.shape[-1])
-    return 0.25 * (c[:, :, 0, :, 0] + c[:, :, 0, :, 1] +
-                   c[:, :, 1, :, 0] + c[:, :, 1, :, 1])
+    """2x2 average pool per face (pbr/light.py:54-79), with the reference's
+    backward (`_CubemapMip`)."""
+    return _CubemapMip.apply(cubemap)
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +285,21 @@ def _patch_fwd_plain(W: torch.Tensor, padded: torch.Tensor, h: int
     return acc
 
 
+def _patch_bwd_plain(W: torch.Tensor, g: torch.Tensor, h: int
+                     ) -> torch.Tensor:
+    """The filter's transpose: W [6, P^2, R, R], g [6, 3, R, R] -> the
+    cotangent of the padded faces [6, 3, R+2h, R+2h], the offsets added in
+    order p = dy * P + dx."""
+    R = W.shape[-1]
+    P = 2 * h + 1
+    E = R + 2 * h
+    bar = torch.zeros((6, 3, E, E), dtype=torch.float32, device=W.device)
+    for p in range(P * P):
+        dy, dx = divmod(p, P)
+        bar[:, :, dy:dy + R, dx:dx + R] += g * W[:, p][:, None]
+    return bar
+
+
 def _apply_patch_plain(cubemap: torch.Tensor, src_idx: torch.Tensor,
                        W: torch.Tensor, h: int) -> torch.Tensor:
     """Port of `_apply_patch_ref` (cubemap.py:485-504): full halo gather,
@@ -285,6 +329,41 @@ def patch_fwd(W: torch.Tensor, padded: torch.Tensor, R: int, P: int,
     return out
 
 
+def patch_bwd(W: torch.Tensor, g: torch.Tensor, R: int, P: int,
+              h: int) -> torch.Tensor:
+    """Transpose of `patch_fwd` (replaces pallas_patch.patch_apply_bwd).
+    W [6, P^2, R, R]; g [6, 3, R, R] -> [6, 3, R+2h, R+2h]."""
+    if not W.is_cuda:
+        return _patch_bwd_plain(W, g, h)
+    dev = W.device
+    E = R + 2 * h
+    g = g.contiguous()
+    ck.check(W, "W", torch.float32, (6, P * P, R, R), dev)
+    ck.check(g, "g", torch.float32, (6, 3, R, R), dev)
+    out = torch.empty((6, 3, E, E), dtype=torch.float32, device=dev)
+    ck.launch("patch_bwd", "gigs_patch_bwd", dev, W.data_ptr(), g.data_ptr(),
+              out.data_ptr(), R, P, h)
+    return out
+
+
+class _PatchFilter(torch.autograd.Function):
+    """The halo filter of the padded faces with its hand backward: W is a
+    constant table (no gradient), so the backward is the transpose alone,
+    as JAX's `_sap_bwd` (cubemap.py:540-560) runs `patch_apply_bwd`."""
+
+    @staticmethod
+    def forward(ctx, padded, W, h):
+        ctx.save_for_backward(W)
+        ctx.h = h
+        return patch_fwd(W, padded, W.shape[-1], 2 * h + 1, h)
+
+    @staticmethod
+    def backward(ctx, g):
+        W, = ctx.saved_tensors
+        h = ctx.h
+        return patch_bwd(W, g, W.shape[-1], 2 * h + 1, h), None, None
+
+
 def halo_pad(cubemap: torch.Tensor, src_idx: torch.Tensor, h: int
              ) -> torch.Tensor:
     """[6, R, R, 3] -> the halo-padded faces [6, 3, R+2h, R+2h] that
@@ -305,9 +384,8 @@ def halo_pad(cubemap: torch.Tensor, src_idx: torch.Tensor, h: int
 def _specular_apply_patch(cubemap: torch.Tensor, src_idx: torch.Tensor,
                           W: torch.Tensor, h: int) -> torch.Tensor:
     """out[f, y, x] = sum_p W[f, p, y, x] * padded[f, y+dy, x+dx]."""
-    R = cubemap.shape[1]
     padded = halo_pad(cubemap, src_idx, h)
-    return patch_fwd(W, padded, R, 2 * h + 1, h).permute(0, 2, 3, 1)
+    return _PatchFilter.apply(padded, W, h).permute(0, 2, 3, 1)
 
 
 def _specular_apply_dense(cubemap: torch.Tensor, M: torch.Tensor

@@ -30,14 +30,14 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("expand.cu", "composite_fwd.cu", "composite_bwd.cu", "gi_march.cu",
-           "patch_fwd.cu")
+           "gi_march_coherent.cu", "patch_fwd.cu", "patch_bwd.cu")
 # -fmad=false: no multiply-add contraction, so each kernel rounds like its
 # plain PyTorch version (the exact f32 tile cull of `expand` relies on it).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 KERNELS = ("expand", "composite_fwd", "composite_bwd", "gi_march",
-           "patch_fwd")
+           "gi_march_coherent", "patch_fwd", "patch_bwd")
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -58,7 +58,10 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _F, _F, _F, _P, _P],
     "gigs_gi_march": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
                       _F, _F, _I, _I, _P, _P, _P],
+    "gigs_gi_march_coherent": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                               _F, _F, _I, _I, _P, _P, _P],
     "gigs_patch_fwd": [_I, _P, _P, _P, _I, _I, _I, _P],
+    "gigs_patch_bwd": [_I, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

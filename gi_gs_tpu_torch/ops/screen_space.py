@@ -3,18 +3,23 @@ host side of gi_gs_tpu/ops/pallas_gi.py): depth -> normal, SSAO and the
 one-bounce SSR indirect diffuse (ref forward.cu:635-1032).
 
 Both SSAO and SSR are one hemisphere ray march per pixel over the view
-z-buffer (`gi_march`): occ = sum_d w_d * hit_d and dif = sum_d w_d *
-rgb(hit_d). On CUDA tensors it runs the kernel `csrc/gi_march.cu`; on CPU
-tensors `_gi_march_plain`, which batches directions through
-`_march_plain`, the port of the jnp oracle `_march`. March semantics
-(pallas_gi.py:38-46): j in [start, step); an out-of-bounds sample kills
-the ray before the depth test; rounding is half away from zero; +1e-7 on
-the projected z; a hit (z - thick <= sample <= z + bias) accumulates and
-stops the ray.
+z-buffer: occ = sum_d w_d * hit_d and dif = sum_d w_d * rgb(hit_d).
+`GIParams.backend` selects the march as in JAX (screen_space.py:251-254):
+  "pallas"                block-coherent march (`gi_march_coherent`): per
+                          (16x128 pixel block, direction, step) every pixel
+                          fetches at the block centre's offset, the hit
+                          test stays per pixel (pallas_gi._kernel_coherent);
+  "pallas_exact", "jnp"   exact march (`gi_march`).
+Each march runs its CUDA kernel on CUDA tensors (`csrc/gi_march.cu`,
+`csrc/gi_march_coherent.cu`) and its plain version on CPU tensors. March
+semantics (pallas_gi.py:38-46): j in [start, step); an out-of-bounds sample
+kills the ray before the depth test; rounding is half away from zero;
++1e-7 on the projected z; a hit (z - thick <= sample <= z + bias)
+accumulates and stops the ray. Both read f32 RGB: the TPU kernels' 11-11-10
+packing (pallas_gi.py:434-477) was a VMEM workaround.
 
-`GIParams.backend` is kept for config compatibility; the port's march is
-the exact one for every value (the TPU's block-coherent approximation,
-backend "pallas", belongs to a later slice).
+Gradients as in JAX: SSAO passes none; SSR passes gradient to `albedo`
+only, through color = gd.detach() * albedo.
 """
 from __future__ import annotations
 
@@ -276,11 +281,172 @@ def gi_march(normal_view: torch.Tensor, pos: torch.Tensor,
     return occ, dif
 
 
+# ---------------------------------------------------------------------------
+# The block-coherent march (GIParams.backend "pallas")
+# ---------------------------------------------------------------------------
+
+BH, BW = 16, 128   # pixel block of the coherent march (pallas_gi.py:62-65)
+_KOFF = 2048       # offset bias of the packed keys (pallas_gi.py:69)
+
+
+def centre_offset_table(normal_view: torch.Tensor, pos: torch.Tensor,
+                        dirs: torch.Tensor, fx: float, fy: float,
+                        p: GIParams) -> torch.Tensor:
+    """The block-centre fetch offsets of the coherent march (port of
+    pallas_gi._centre_offset_table, same f32 operations in the same order):
+    int32 [nby, nbx, nd, nsteps], key = (dy + K) * 2K + (dx + K), K = 2048.
+    The centres are taken in the G-buffer zero-padded to (16, 128)
+    multiples, as on the TPU: a block whose centre lies in the padding
+    (the last column block when W is not a multiple of 128) gets the
+    offsets of a zero normal at the origin, whatever its real pixels
+    hold."""
+    h, w = pos.shape[1:]
+    nby, nbx = -(-h // BH), -(-w // BW)
+    ci, cj = BH // 2, BW // 2
+    pad = (0, nbx * BW - w, 0, nby * BH - h)
+    nc = F.pad(normal_view, pad)[:, ci::BH, cj::BW]       # [3, nby, nbx]
+    pc = F.pad(pos, pad)[:, ci::BH, cj::BW]
+    fx, fy = float(np.float32(fx)), float(np.float32(fy))
+    cx, cy = w / 2.0, h / 2.0
+
+    def unit3(x, y, z):
+        n = torch.clamp(torch.sqrt(x * x + y * y + z * z), min=1e-20)
+        return x / n, y / n, z / n
+
+    ncx, ncy, ncz = unit3(nc[0], nc[1], nc[2])
+    tcx, tcy, tcz = unit3(-ncx * ncy, 1.0 - ncy * ncy, -ncz * ncy)
+    bcx, bcy, bcz = unit3(ncy * tcz - ncz * tcy, ncz * tcx - ncx * tcz,
+                          ncx * tcy - ncy * tcx)
+    zsc_c = (1.0 + pc[2] / 100.0) ** 2 * (p.radius / p.step)
+    dev = pos.device
+    px_c = (torch.arange(nbx, dtype=torch.float32, device=dev) * BW + cj
+            )[None, :, None]
+    py_c = (torch.arange(nby, dtype=torch.float32, device=dev) * BH + ci
+            )[:, None, None]
+    e = lambda a: a[None, None, :]          # [1, 1, nd]
+    b = lambda a: a[:, :, None]             # [nby, nbx, 1]
+    scx = e(dirs[:, 0]) * b(tcx) + e(dirs[:, 1]) * b(bcx) + e(dirs[:, 2]) * b(ncx)
+    scy = e(dirs[:, 0]) * b(tcy) + e(dirs[:, 1]) * b(bcy) + e(dirs[:, 2]) * b(ncy)
+    scz = e(dirs[:, 0]) * b(tcz) + e(dirs[:, 1]) * b(bcz) + e(dirs[:, 2]) * b(ncz)
+    keys = []
+    for j in range(p.start, p.step):
+        tc = float(j) * b(zsc_c)
+        spx = b(pc[0]) + scx * tc
+        spy = b(pc[1]) + scy * tc
+        spz = b(pc[2]) + scz * tc
+        zz = spz + 1e-7
+        dxc = _round_half_away(spx / zz * fx + cx) - px_c
+        dyc = _round_half_away(spy / zz * fy + cy) - py_c
+        dxi = torch.clamp(dxc, -_KOFF + 1, _KOFF - 1).to(torch.int32)
+        dyi = torch.clamp(dyc, -_KOFF + 1, _KOFF - 1).to(torch.int32)
+        keys.append((dyi + _KOFF) * (2 * _KOFF) + (dxi + _KOFF))
+    return torch.stack(keys, dim=-1).contiguous()
+
+
+def _gi_march_coherent_plain(normal_view, pos, rgb, keys, p: GIParams,
+                             batch: int = 16, work: Optional[dict] = None):
+    """Plain version of `gi_march_coherent`, per pixel as
+    pallas_gi._kernel_coherent: the pixel's own normal gives the z row of
+    its TBN and its marched depth spz = posz + svz * (j * zsc); the sample
+    sits at pixel + its block's centre offset (out of bounds kills the ray
+    before the depth test); z and RGB are read there. Directions run in
+    batches."""
+    H, W = pos.shape[1:]
+    dev = pos.device
+    nrm = _unit3(normal_view)
+    tang, bitan, nrm3 = _tbn(nrm)
+    tab = device_constant(_direction_rows, p, device=dev)
+    posz = pos[2]
+    zsc = (1.0 + posz / 100.0) ** 2 * (p.radius / p.step)
+    ys = torch.arange(H, device=dev)[:, None]
+    xs = torch.arange(W, device=dev)[None, :]
+    flat_z = posz.reshape(-1)
+    flat_rgb = None if rgb is None else rgb.reshape(3, -1)
+    occ = torch.zeros((H, W), dtype=torch.float32, device=dev)
+    dif = torch.zeros((3, H, W), dtype=torch.float32, device=dev)
+    for s in range(0, tab.shape[0], batch):
+        d, w = tab[s:s + batch, :3], tab[s:s + batch, 3]
+        B = d.shape[0]
+        svz = (d[:, 0, None, None] * tang[2] + d[:, 1, None, None] * bitan[2]
+               + d[:, 2, None, None] * nrm3[2])
+        hit = torch.zeros((B, H, W), dtype=torch.bool, device=dev)
+        dead = torch.zeros((B, H, W), dtype=torch.bool, device=dev)
+        val = torch.zeros((B, 3, H, W), dtype=torch.float32, device=dev)
+        for j in range(p.start, p.step):
+            if work is not None:
+                work["samples"] = work.get("samples", 0) + int((~dead).sum())
+            k = keys[:, :, s:s + B, j - p.start].permute(2, 0, 1)
+            k = k.repeat_interleave(BH, 1).repeat_interleave(BW, 2)[:, :H, :W]
+            iy = ys + (k // (2 * _KOFF) - _KOFF)
+            ix = xs + (k % (2 * _KOFF) - _KOFF)
+            oob = (ix < 0) | (ix > W - 1) | (iy < 0) | (iy > H - 1)
+            lin = (torch.clamp(iy, 0, H - 1) * W + torch.clamp(ix, 0, W - 1)
+                   ).to(torch.int64)
+            spz = posz + svz * (float(j) * zsc)
+            sample = flat_z[lin]
+            is_hit = (sample <= spz + p.bias) & (sample >= spz - p.thick)
+            new_dead = dead | oob
+            new_hit = ~new_dead & ~hit & is_hit
+            if flat_rgb is not None:
+                g = flat_rgb[:, lin.reshape(-1)].reshape(3, B, H, W)
+                val = val + torch.where(new_hit[:, None],
+                                        g.permute(1, 0, 2, 3), 0.0)
+            hit = hit | new_hit
+            dead = new_dead | hit
+        occ = occ + (hit * w[:, None, None]).sum(0)
+        if rgb is not None:
+            dif = dif + (val * w[:, None, None, None]).sum(0)
+    return occ, dif
+
+
+def gi_march_coherent(normal_view: torch.Tensor, pos: torch.Tensor,
+                      rgb: Optional[torch.Tensor], fx: float, fy: float,
+                      p: GIParams) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block-coherent hemisphere march of every pixel (replaces
+    pallas_gi._march_pallas(mode="coherent")). The centre-offset table is
+    built by `centre_offset_table` on the tensors' device, as JAX builds it
+    outside its kernel. Same arguments and outputs as `gi_march`."""
+    dev = pos.device
+    tab = device_constant(_direction_rows, p, device=dev)
+    keys = centre_offset_table(normal_view, pos, tab, fx, fy, p)
+    if not pos.is_cuda:
+        return _gi_march_coherent_plain(normal_view, pos, rgb, keys, p)
+    H, W = pos.shape[1:]
+    normal_view = normal_view.contiguous()
+    pos = pos.contiguous()
+    ck.check(normal_view, "normal_view", torch.float32, (3, H, W), dev)
+    ck.check(pos, "pos", torch.float32, (3, H, W), dev)
+    ck.check(keys, "keys", torch.int32, None, dev)
+    if rgb is not None:
+        rgb = rgb.contiguous()
+        ck.check(rgb, "rgb", torch.float32, (3, H, W), dev)
+    occ = torch.empty((H, W), dtype=torch.float32, device=dev)
+    dif = (torch.empty((3, H, W), dtype=torch.float32, device=dev)
+           if rgb is not None else torch.zeros((3, H, W), device=dev))
+    ck.launch("gi_march_coherent", "gigs_gi_march_coherent", dev,
+              normal_view.data_ptr(), pos.data_ptr(),
+              rgb.data_ptr() if rgb is not None else None, tab.data_ptr(),
+              keys.data_ptr(), tab.shape[0], keys.shape[3], H, W,
+              float(np.float32(p.radius / p.step)), p.bias, p.thick,
+              p.start, p.step, occ.data_ptr(),
+              dif.data_ptr() if rgb is not None else None)
+    return occ, dif
+
+
+def march(normal_view, pos, rgb, fx, fy, p: GIParams):
+    """The march `p.backend` selects, as JAX dispatches it
+    (screen_space.py:251-254): "pallas" (and any other "pallas*" but
+    "pallas_exact") is the coherent march, the rest the exact one."""
+    if p.backend.startswith("pallas") and p.backend != "pallas_exact":
+        return gi_march_coherent(normal_view, pos, rgb, fx, fy, p)
+    return gi_march(normal_view, pos, rgb, fx, fy, p)
+
+
 def ssao(normal_view: torch.Tensor, pos: torch.Tensor, fx: float, fy: float,
          p: GIParams) -> torch.Tensor:
     """Screen-space ambient occlusion [1, H, W] (SSAOCUDA; host math of
-    pallas_gi.ssao_pallas)."""
-    occ, _ = gi_march(normal_view, pos, None, fx, fy, p)
+    pallas_gi.ssao_pallas). No gradient, as in the reference."""
+    occ, _ = march(normal_view.detach(), pos.detach(), None, fx, fy, p)
     _, sum_w, _ = direction_table(p)
     if sum_w > 0:
         out = torch.clamp(1.0 - occ / sum_w, 0.0, 1.0)
@@ -301,18 +467,21 @@ def ssr(normal_view: torch.Tensor, pos: torch.Tensor, rgb: torch.Tensor,
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-bounce screen-space indirect diffuse (SSRCUDA; host math of
     pallas_gi.ssr_pallas). Returns (color, gd), both [3, H, W], with
-    color = gd * albedo."""
+    color = gd.detach() * albedo: the only gradient is d(color)/d(albedo)
+    = gd (diff_gaussian_rasterization/__init__.py:666-673)."""
+    normal_view, pos, rgb = normal_view.detach(), pos.detach(), rgb.detach()
+    f0, metallic = f0.detach(), metallic.detach()
     nrm = _unit3(normal_view)
     v_dir = _unit3(-pos)
     n_dot_v = torch.clamp((nrm * v_dir).sum(0, keepdim=True), min=1e-7)
     fr = fresnel_schlick(n_dot_v, f0)
     k_d = (1.0 - fr) * (1.0 - metallic)
-    _, dif = gi_march(normal_view, pos, rgb, fx, fy, p)
+    _, dif = march(normal_view, pos, rgb, fx, fy, p)
     _, _, n_total = direction_table(p)
     if n_total > 0:
         gd = math.pi * dif / n_total * k_d
         color = gd * albedo
     else:
         gd = torch.full_like(albedo, 1e-7)
-        color = gd.expand_as(albedo).clone()
+        color = gd + 0.0 * albedo
     return color, gd

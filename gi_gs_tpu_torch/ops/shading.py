@@ -13,7 +13,7 @@ import torch
 
 from ..models import light as light_mod
 from ..utils.device import device_constant
-from ..utils.math_utils import aces_film, linear_to_srgb
+from ..utils.math_utils import aces_film, clip, linear_to_srgb
 from . import cubemap as cm
 
 
@@ -110,8 +110,8 @@ def _brdf_lut_quad(res: int = 256, samples: int = 4096) -> np.ndarray:
 def _sample_brdf_lut_flat(nov, roughness, res: int = 256):
     """Flat bilinear LUT lookup: nov/roughness [P] -> (fg0, fg1) [P]."""
     quad = device_constant(_brdf_lut_quad, res, device=nov.device)
-    u = torch.clamp(nov * res - 0.5, 0.0, res - 1)
-    v = torch.clamp(roughness * res - 0.5, 0.0, res - 1)
+    u = clip(nov * res - 0.5, 0.0, res - 1)
+    v = clip(roughness * res - 0.5, 0.0, res - 1)
     u0, v0 = torch.floor(u), torch.floor(v)
     du, dv = u - u0, v - v0
     Q = quad[v0.to(torch.int64) * res + u0.to(torch.int64)]
@@ -141,7 +141,7 @@ def _trilinear_specular_flat(specular, dx, dy, dz, mip):
     ress_t, offs_t = device_constant(
         _level_rows, tuple(s.shape[1] for s in specular), device=dx.device)
 
-    mip = torch.clamp(mip, 0.0, L - 1)
+    mip = clip(mip, 0.0, L - 1)
     lo = torch.floor(mip)
     frac = mip - lo
     lo_i = lo.to(torch.int64)
@@ -156,8 +156,8 @@ def _trilinear_specular_flat(specular, dx, dy, dz, mip):
         v = (fy + 1.0) * 0.5 * Rf - 0.5
         u0 = torch.minimum(torch.clamp(torch.floor(u), min=-1), Rf - 1)
         v0 = torch.minimum(torch.clamp(torch.floor(v), min=-1), Rf - 1)
-        du = torch.clamp(u - u0, 0.0, 1.0)
-        dv = torch.clamp(v - v0, 0.0, 1.0)
+        du = clip(u - u0, 0.0, 1.0)
+        dv = clip(v - v0, 0.0, 1.0)
         idx = offs_t[lvl] + face * E1 * E1 + \
             (v0.to(torch.int64) + 1) * E1 + (u0.to(torch.int64) + 1)
         Q = flatq[idx]
@@ -198,7 +198,7 @@ def pbr_shading_chw(light: light_mod.CubemapLight,
     occ = None if occlusion is None else flat(occlusion)[0]
 
     ndv = nx * vx + ny * vy + nz * vz
-    ndv_pos = 2.0 * torch.clamp(ndv, min=0.0)
+    ndv_pos = 2.0 * clip(ndv, 0.0)
     rx, ry, rz = (ndv_pos * nx - vx, ndv_pos * ny - vy, ndv_pos * nz - vz)
 
     ncx, ncy, ncz = _frame_rows(T, nx, ny, nz)
@@ -210,7 +210,7 @@ def pbr_shading_chw(light: light_mod.CubemapLight,
         dr, dg, db = dr * occ, dg * occ, db * occ
     diff_r, diff_g, diff_b = dr * ar, dg * ag, db * ab
 
-    nov = torch.clamp(ncx * vcx + ncy * vcy + ncz * vcz, 1e-4, 1.0)
+    nov = clip(ncx * vcx + ncy * vcy + ncz * vcz, 1e-4, 1.0)
     fg0, fg1 = _sample_brdf_lut_flat(nov, rough)
 
     miplevel = light_mod.get_mip(rough, len(light.specular))
@@ -238,7 +238,7 @@ def pbr_shading_chw(light: light_mod.CubemapLight,
     if tone:
         render_rgb = aces_film(render_rgb)
     else:
-        render_rgb = torch.clamp(render_rgb, 0.0, 1.0)
+        render_rgb = clip(render_rgb, 0.0, 1.0)
     if gamma:
         render_rgb = linear_to_srgb(render_rgb)
         diffuse_rgb = linear_to_srgb(diffuse_rgb)

@@ -1,15 +1,24 @@
-"""Phase-1 training step (port of the phase-1 half of
-gi_gs_tpu/train/trainer.py; ref training(), train.py:171-527): photometric
-L1 + D-SSIM, world-frame normal consistency and normal TV, one backward
-through the rasterizer (the compositing backward is the CUDA kernel
-`csrc/composite_bwd.cu` on the card), per-group Adam, then the
-densify / prune / opacity-reset schedule.
+"""Training steps of both phases (port of gi_gs_tpu/train/trainer.py;
+ref training(), train.py:171-527).
 
-The JAX step is one jitted function with the schedule under lax.cond;
-its conditions depend only on the host iteration, so here they are plain
+Phase 1: photometric L1 + D-SSIM, world-frame normal consistency and
+normal TV, one backward through the rasterizer (the compositing backward
+is the CUDA kernel `csrc/composite_bwd.cu` on the card), per-group Adam,
+then the densify / prune / opacity-reset schedule.
+Phase 2 (deferred PBR, train.py:330-421): the G-buffer render (SSAO on
+with --indirect), split-sum shading against the light prefiltered from
+the learnable cubemap, SSR indirect diffuse, BRDF/env regularisers; one
+backward to the Gaussian fields, the densification hook and the cubemap
+(through the patch filter's backward, `csrc/patch_bwd.cu` on the card),
+the same schedule, then the light's Adam and cubemap = max(cubemap, 0).
+
+The JAX steps are jitted functions with the schedule under lax.cond; its
+conditions depend only on the host iteration, so here they are plain
 `if`s. The per-step stages are timed by `utils/timing.stage` when timing
 is on: the renderer's own stages (activations, preprocess, binning,
-composite, derive, post), then loss, backward, optimizer and densify.
+composite, derive, ssao, post), then loss, backward, optimizer and
+densify; phase 2 adds build_mips, shading, ssr, env_tv and
+light_optimizer.
 """
 from __future__ import annotations
 
@@ -19,10 +28,13 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from ..config import Config
+from ..models import light as light_mod
 from ..models.gaussians import GaussianParams, grow_params
+from ..ops import screen_space, shading
 from ..renderer import render
-from ..scene.cameras import Camera
-from ..utils import image_utils, timing
+from ..scene.cameras import Camera, compute_view_dirs
+from ..utils import image_utils, math_utils, timing
+from ..utils.device import device_constant, resolve_device
 from . import losses
 from .densify import DensifyStats, densify_and_prune, reset_opacity, update_stats
 from .optim import (GroupAdam, build_light_optimizer, build_optimizer,
@@ -224,4 +236,151 @@ def make_phase1_step(cfg: Config, cameras_extent: float, tx: GroupAdam):
                                   aux["normal_loss"].detach(), psnr, dropped,
                                   aux["overflow"], aux["max_tile_count"])
 
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: deferred PBR
+# ---------------------------------------------------------------------------
+
+def phase2_view_loss(cfg: Config, light: light_mod.CubemapLight,
+                     params: GaussianParams,
+                     ndc_zeros: Optional[torch.Tensor], camera: Camera,
+                     image, alpha, bg, view_dirs):
+    """Per-view deferred-PBR loss (train.py:330-407; JAX trainer.py:265-
+    346): render the G-buffer, shade it against the prefiltered `light`
+    (shading normals and occlusion detached), add the SSR indirect of the
+    sRGB->linear direct render (median-blurred), then L1, the masked or
+    unmasked BRDF TV and the 0.001 roughness/metallic prior. The per-step
+    env-TV term is the caller's. Returns (loss, aux)."""
+    t = cfg.train
+    dev = params.device
+    res = render(camera, params, bg, cfg.raster, cfg.gi, derive_normal=True,
+                 compute_occlusion=t.indirect, ndc_offset=ndc_zeros)
+    with timing.stage("shading", dev):
+        gt = _gt_image(image, alpha, bg)
+        rmax, rmin = 1.0, 0.04
+        roughness_map = res["roughness_map"] * (rmax - rmin) + rmin
+        metallic_map = res["metallic_map"]
+        albedo_map = res["albedo_map"]
+        normal_mask = res["normal_mask"]            # [1, H, W]
+        occlusion = (res["occlusion_map"] if t.indirect
+                     else torch.ones_like(roughness_map))
+        pbr = shading.pbr_shading_chw(
+            light=light, normals=res["normal_map_world"].detach(),
+            view_dirs=view_dirs, albedo=albedo_map, roughness=roughness_map,
+            mask=normal_mask, tone=t.tone, gamma=t.gamma,
+            occlusion=occlusion.detach(),
+            metallic=metallic_map if t.metallic else None)
+        render_direct = torch.where(normal_mask, pbr["render_rgb"],
+                                    bg[:, None, None])
+        if t.metallic:
+            f0 = (1.0 - metallic_map) * 0.04 + albedo_map * metallic_map
+        else:
+            f0 = torch.ones_like(albedo_map) * 0.04
+            metallic_map = torch.zeros_like(roughness_map)
+    with timing.stage("ssr", dev):
+        linear_rgb = math_utils.srgb_to_linear(render_direct)
+        irr, _ = screen_space.ssr(
+            res["out_normal_view"].detach(), res["depth_pos"].detach(),
+            linear_rgb.detach(), albedo_map, roughness_map, metallic_map, f0,
+            camera.fx, camera.fy, cfg.gi)
+        irr = image_utils.median_blur_3x3(math_utils.linear_to_srgb(irr))
+        render_rgb = render_direct + irr
+    with timing.stage("loss", dev):
+        pbr_l1 = image_utils.l1_loss(render_rgb, gt)
+        brdf_maps = torch.cat([albedo_map, roughness_map, metallic_map], 0)
+        # both terms on the device and a select, as JAX's jnp.where: no
+        # host sync on the mask
+        has_bg = (normal_mask == 0).sum() > 0
+        brdf_tv = torch.where(
+            has_bg, losses.masked_tv_loss(normal_mask, gt, brdf_maps),
+            losses.tv_loss(gt, brdf_maps, pad=1, step=1))
+        loss = pbr_l1 + brdf_tv * t.brdf_tv_weight
+        m = normal_mask.to(torch.float32)
+        msum = math_utils.clip(m.sum(), 1.0)
+        lamb = ((1.0 - roughness_map) * m).sum() / msum + \
+            (metallic_map * m).sum() / msum
+        loss = loss + 0.001 * lamb
+    aux = {"l1": pbr_l1, "normal_loss": torch.zeros((), device=dev),
+           "render": render_rgb, "gt": gt,
+           "visibility": res["visibility_filter"], "radii": res["radii"],
+           "overflow": res["overflow"],
+           "max_tile_count": res["max_tile_count"]}
+    return loss, aux
+
+
+def env_tv_loss(cubemap_base: torch.Tensor) -> torch.Tensor:
+    """Per-step environment-map TV on the exported 512 x 1024 lat-long
+    grid (train.py:409-416)."""
+    envmap = light_mod.make_latlong_sampler(cubemap_base.shape[1])(
+        cubemap_base)
+    return ((envmap[1:] - envmap[:-1]) ** 2).mean() + \
+        ((envmap[:, 1:] - envmap[:, :-1]) ** 2).mean()
+
+
+def phase2_loss_and_grads(cfg: Config, light_tables, params: GaussianParams,
+                          cubemap: torch.Tensor, camera: Camera, image, alpha,
+                          bg, view_dirs):
+    """Phase-2 loss of one view plus env-TV, and its gradients: (loss, aux,
+    grads of the trainable fields, ndc_grad [C, 2], cubemap grad).
+    light_tables: `light.build_prefilter_tables`'s (spec, arrays)."""
+    dev = params.device
+    view = {f: x.detach().requires_grad_(True)
+            for f, x in trainable_view(params).items()}
+    ndc = torch.zeros((params.capacity, 2), dtype=torch.float32, device=dev,
+                      requires_grad=True)
+    base = cubemap.detach().requires_grad_(True)
+    with torch.enable_grad():
+        with timing.stage("build_mips", dev):
+            light = light_mod.build_mips_packed(base, *light_tables)
+        loss, aux = phase2_view_loss(cfg, light, params.replace(**view), ndc,
+                                     camera, image, alpha, bg, view_dirs)
+        with timing.stage("env_tv", dev):
+            loss = loss + env_tv_loss(base) * cfg.train.env_tv_weight
+        with timing.stage("backward", dev):
+            leaves = list(view.values()) + [ndc, base]
+            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+    gs = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, gs)]
+    return loss.detach(), aux, dict(zip(view, gs[:-2])), gs[-2], gs[-1]
+
+
+def make_phase2_step(cfg: Config, cameras_extent: float, tx: GroupAdam,
+                     ltx: GroupAdam, device=None):
+    """Returns step(state, camera, image, alpha, bg, iteration) ->
+    (state, StepAux) of the deferred-PBR phase (train.py:330-421). The
+    background is black whatever `bg` is (train.py:264-265). The
+    prefilter tables (and the env-BRDF LUT) are built once here on
+    `device` (default: the card), as JAX builds them once per step
+    factory."""
+    dev = resolve_device(device)
+    light_tables = light_mod.build_prefilter_tables(cfg.train.light_base_res,
+                                                    device=dev)
+    device_constant(shading._brdf_lut_quad, 256, device=dev)
+
+    def step(state: TrainState, camera: Camera, image, alpha, bg,
+             iteration: int):
+        bg = torch.zeros_like(bg)
+        view_dirs = compute_view_dirs(camera)
+        loss, aux, grads, ndc_grad, light_grad = phase2_loss_and_grads(
+            cfg, light_tables, state.params, state.cubemap, camera, image,
+            alpha, bg, view_dirs)
+        new_state, dropped = _apply_schedule_updates(
+            cfg, state, grads, ndc_grad, aux, int(iteration), tx,
+            cameras_extent)
+        with timing.stage("light_optimizer", state.params.device):
+            cube, light_opt_state = ltx.step(
+                {"cubemap": light_grad}, state.light_opt_state,
+                {"cubemap": state.cubemap})
+            cubemap = torch.clamp(cube["cubemap"], min=0.0)
+        new_state = new_state.replace(cubemap=cubemap,
+                                      light_opt_state=light_opt_state)
+        with torch.no_grad():
+            psnr = image_utils.psnr(torch.clamp(aux["render"], 0.0, 1.0),
+                                    aux["gt"])
+        return new_state, StepAux(loss, aux["l1"].detach(),
+                                  aux["normal_loss"], psnr, dropped,
+                                  aux["overflow"], aux["max_tile_count"])
+
+    step.light_tables = light_tables
     return step

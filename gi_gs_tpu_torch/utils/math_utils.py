@@ -141,11 +141,21 @@ def focal2fov(focal: float, pixels: float) -> float:
 # Colour transforms (ref train.py:54-81, pbr/shade.py:32-43)
 # ---------------------------------------------------------------------------
 
+def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
+    """jnp.clip: min(max(x, lo), hi). At a tie the gradient splits in half
+    like jnp.maximum/minimum; torch.clamp passes it whole. `lo`/`hi` are
+    numbers or tensors."""
+    if lo is not None:
+        x = torch.maximum(x, lo if torch.is_tensor(lo) else x.new_full((), lo))
+    if hi is not None:
+        x = torch.minimum(x, hi if torch.is_tensor(hi) else x.new_full((), hi))
+    return x
+
+
 def linear_to_srgb(linear: torch.Tensor) -> torch.Tensor:
     """Mip-NeRF-style linear->sRGB (ref train.py:54-68)."""
     srgb0 = 323.0 / 25.0 * linear
-    srgb1 = (211.0 * torch.clamp(linear, min=_F32_EPS) ** (5.0 / 12.0)
-             - 11.0) / 200.0
+    srgb1 = (211.0 * clip(linear, _F32_EPS) ** (5.0 / 12.0) - 11.0) / 200.0
     return torch.where(linear <= 0.0031308, srgb0, srgb1)
 
 
@@ -160,4 +170,4 @@ def aces_film(rgb: torch.Tensor) -> torch.Tensor:
     """ACES filmic tonemap clamped to [0, 1] (ref pbr/shade.py:32-43)."""
     a, b, c, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
     out = (rgb * (a * rgb + b)) / (rgb * (c * rgb + d) + e)
-    return torch.clamp(out, 0.0, 1.0)
+    return clip(out, 0.0, 1.0)

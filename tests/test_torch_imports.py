@@ -50,7 +50,8 @@ def test_no_kernel_is_built_at_import():
     from gi_gs_tpu_torch.ops import cuda_kernels as ck
     assert ck._lib is None
     assert set(ck.launches) == {"expand", "composite_fwd", "composite_bwd",
-                                "gi_march", "patch_fwd"}
+                                "gi_march", "gi_march_coherent", "patch_fwd",
+                                "patch_bwd"}
 
 
 def test_cuda_default_entry_points_raise_without_gpu(tmp_path):

@@ -1,4 +1,4 @@
-"""The five CUDA kernels against their plain PyTorch versions on the card
+"""The seven CUDA kernels against their plain PyTorch versions on the card
 (csrc/*.cu, built at first use). Marked `cuda`: they skip without a GPU.
 On a machine with one (without JAX, so skip the tests' conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py"""
@@ -124,3 +124,64 @@ def test_patch_matches_plain(dev, R, rough):
     k = cm._specular_apply_patch(cmap, src, W, h)
     p = cm._apply_patch_plain(cmap, src, W, h)
     torch.testing.assert_close(k, p, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_rgb", [False, True])
+def test_gi_march_coherent_matches_plain(dev, with_rgb):
+    """One full 128-column block and a partial one whose centre lies in
+    the padding. The offset table built on the card equals the one built
+    on the CPU (integer keys, no mismatch allowed); the kernel matches the
+    plain coherent march on the same keys (same hits, sums over the
+    directions in another order: rtol 1e-5, atol 1e-4)."""
+    h, w = 48, 200
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    z = 2.5 + 0.4 * np.sin(xs / 11) + 0.3 * np.cos(ys / 7)
+    z[:, w // 2:] += 0.8
+    fx = float(np.float32(0.9 * w))
+    pos = torch.tensor(np.stack([(xs - w / 2) / fx * z, (ys - h / 2) / fx * z,
+                                 z]), dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    nrm = torch.randn(3, h, w, device=dev, generator=g)
+    nrm[2] -= 1.5
+    rgb = torch.rand(3, h, w, device=dev, generator=g) if with_rgb else None
+    p = ss.GIParams()
+    tab = ss.direction_table(p)[0]
+    keys = ss.centre_offset_table(nrm, pos, torch.as_tensor(tab, device=dev),
+                                  fx, fx, p)
+    keys_cpu = ss.centre_offset_table(nrm.cpu(), pos.cpu(),
+                                      torch.as_tensor(tab), fx, fx, p)
+    assert torch.equal(keys.cpu(), keys_cpu)
+    before = ck.launches["gi_march_coherent"]
+    ko, kd = ss.gi_march_coherent(nrm, pos, rgb, fx, fx, p)
+    assert ck.launches["gi_march_coherent"] == before + 1
+    po, pd = ss._gi_march_coherent_plain(nrm, pos, rgb, keys, p)
+    torch.testing.assert_close(ko, po, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(kd, pd, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("R,rough", [(64, 0.36), (128, 0.22)])
+def test_patch_bwd_matches_plain(dev, R, rough):
+    """The transpose kernel against `_patch_bwd_plain` (the same products
+    added in the same offset order, no FMA: 1e-6), and the cubemap
+    gradient of the whole filter on the card (forward and backward
+    kernels) against autograd of the plain filter (1e-5: the halo
+    border's scatter adds in another order)."""
+    h, src, W = cm._patch_tables(R, rough, 0.99)
+    W = torch.as_tensor(W, device=dev)
+    src = torch.as_tensor(src, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    cot = torch.randn(6, 3, R, R, device=dev, generator=g)
+    P = 2 * h + 1
+    before = ck.launches["patch_bwd"]
+    k = cm.patch_bwd(W, cot, R, P, h)
+    assert ck.launches["patch_bwd"] == before + 1
+    torch.testing.assert_close(k, cm._patch_bwd_plain(W, cot, h), rtol=1e-6,
+                               atol=1e-6)
+    cmap = torch.rand(6, R, R, 3, device=dev, generator=g)
+    gout = cot.permute(0, 2, 3, 1)
+    grads = []
+    for fn in (cm._specular_apply_patch, cm._apply_patch_plain):
+        c = cmap.clone().requires_grad_(True)
+        (fn(c, src, W, h) * gout).sum().backward()
+        grads.append(c.grad)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)

@@ -26,6 +26,7 @@ from gi_gs_tpu_torch.models.gaussians import params_from_numpy
 from gi_gs_tpu_torch.ops import shading
 from gi_gs_tpu_torch.ops.screen_space import direction_table
 from gi_gs_tpu_torch.scene.cameras import make_camera
+from gi_gs_tpu_torch.utils import device as device_mod
 
 torch.set_num_threads(1)
 
@@ -45,10 +46,20 @@ def shared_lut():
     for mod in (shading, jax_shading):
         mp.setattr(mod, "_brdf_lut_np", lambda *a: lut)
         mod._brdf_lut_quad.cache_clear()
+    _drop_device_luts()
     yield
     mp.undo()
     for mod in (shading, jax_shading):
         mod._brdf_lut_quad.cache_clear()
+    _drop_device_luts()
+
+
+def _drop_device_luts():
+    """Forget the LUT copies `device_constant` keeps, so a LUT built
+    before or under the patch is not read after it."""
+    for key in [k for k in device_mod._constants
+                if k[0] is shading._brdf_lut_quad]:
+        del device_mod._constants[key]
 
 
 def gaussian_fields(n=2000, cap=2048, seed=0):
@@ -104,6 +115,7 @@ def test_render_pbr_view_matches_jax():
                                    jnp.zeros(3))
     cfg = config.Config()
     cfg.raster = dataclasses.replace(cfg.raster, cap_instances=CAP)
+    cfg.gi = cfg.gi._replace(backend="jnp")     # the exact march, as JAX's
     state = types.SimpleNamespace(
         params=params_from_numpy(fields, 3, 3, device="cpu"),
         cubemap=torch.as_tensor(cubemap))

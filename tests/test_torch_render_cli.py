@@ -70,10 +70,32 @@ def test_render_cli_psnr_matches_jax(tmp_path):
                                            name))
 
 
-def test_render_cli_refuses_coherent_march(tmp_path):
-    """The coherent march is not ported: asking for it must not silently
-    run the exact one."""
-    with pytest.raises(NotImplementedError, match="coherent"):
-        render_cli.main(["--model_path", str(tmp_path), "--source_path",
-                         str(tmp_path), "--device", "cpu",
-                         "--backend", "pallas"])
+@pytest.mark.parametrize("flags,march", [
+    ([], "gi_march"), (["--backend", "pallas"], "gi_march_coherent")])
+def test_render_cli_backend_selects_the_march(tmp_path, monkeypatch, flags,
+                                              march):
+    """Without --backend the CLI runs the exact march whatever
+    cfg_args.json saved (here the default "pallas"), as the JAX CLI does;
+    --backend pallas runs the coherent one. The march a wrapper would
+    launch on the card is recorded by patching both wrappers."""
+    from gi_gs_tpu_torch.ops import screen_space
+    data, model = str(tmp_path / "scene"), str(tmp_path / "model")
+    make_blender_dataset(data, n_frames=2, size=32)
+    cfg = config.Config()
+    cfg.raster = type(cfg.raster)(cap_instances=CAP)
+    cfg.train.light_base_res = 16
+    cfg.gi = cfg.gi._replace(step=4, start=2, delta=0.25)
+    assert cfg.gi.backend == "pallas"
+    config.save_cfg(cfg, model)
+    state_from_numpy(gaussian_fields(n=500, cap=1024, seed=4),
+                     np.full((6, 16, 16, 3), 0.5, np.float32),
+                     {"iteration": 3}, model)
+    ran = []
+    for name in ("gi_march", "gi_march_coherent"):
+        fn = getattr(screen_space, name)
+        monkeypatch.setattr(screen_space, name,
+                            lambda *a, _f=fn, _n=name: ran.append(_n) or _f(*a))
+    out = render_cli.main(["--model_path", model, "--source_path", data,
+                           "--device", "cpu", "--max_views", "1", *flags])
+    assert np.isfinite(out["psnr_avg"])
+    assert ran == [march, march]            # SSAO, then SSR

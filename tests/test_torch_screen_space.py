@@ -1,12 +1,16 @@
 """The port's screen-space operators against the JAX reference on the
 CPU: SSAO/SSR through the plain version of the csrc/gi_march.cu kernel
 vs the jnp oracle (exact), vs the Pallas exact kernel in interpret mode
-(within its RGB quantisation bound) and vs the frozen goldens."""
+(within its RGB quantisation bound) and vs the frozen goldens; the
+block-coherent march (plain version of csrc/gi_march_coherent.cu) and its
+centre-offset table vs the Pallas coherent kernel; the backend dispatch
+and SSR's albedo-only gradient."""
 import os
 
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from gi_gs_tpu.ops import pallas_gi
@@ -51,7 +55,7 @@ def test_ssao_ssr_match_jnp_oracle(gi):
     n, pos, fx, fy = _scene(h, w, seed=1)
     rgb, albedo, rough, metal, f0 = _ssr_inputs(h, w, seed=2)
     jp = jss.GIParams(**gi, backend="jnp")
-    tp = tss.GIParams(**gi)
+    tp = tss.GIParams(**gi, backend="jnp")
     T = torch.as_tensor
     ao_j = np.asarray(jss.ssao(jnp.asarray(n), jnp.asarray(pos), fx, fy, jp))
     ao_t = tss.ssao(T(n), T(pos), fx, fy, tp).numpy()
@@ -79,7 +83,7 @@ def test_ssr_matches_pallas_exact_within_quantisation():
         jp, interpret=True, mode="exact")
     ct, gt = tss.ssr(*map(torch.as_tensor, (n, pos, rgb, albedo, rough,
                                             metal, f0)),
-                     fx, fy, tss.GIParams(**SMALL))
+                     fx, fy, tss.GIParams(**SMALL, backend="pallas_exact"))
     np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=5e-3,
                                atol=5e-3)
     np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=5e-3,
@@ -87,8 +91,9 @@ def test_ssr_matches_pallas_exact_within_quantisation():
 
 
 def test_screen_space_matches_golden():
+    """The goldens hold the exact march (JAX backend "jnp")."""
     g = np.load(os.path.join(FIX, "golden_screen_space.npz"))
-    p = tss.GIParams(**SMALL)
+    p = tss.GIParams(**SMALL, backend="jnp")
     T = torch.as_tensor
     normal, pos = T(g["normal"]), T(g["pos"])
     fx, fy = float(g["fx"]), float(g["fy"])
@@ -125,3 +130,115 @@ def test_direction_table_matches_pallas_gi():
         tab_t, sw_t, n_t = tss.direction_table(tss.GIParams(**gi))
         np.testing.assert_array_equal(tab_t, tab_j)
         assert (sw_t, n_t) == (sw_j, n_j)
+
+
+# ---------------------------------------------------------------------------
+# The block-coherent march (GIParams.backend "pallas", the default)
+# ---------------------------------------------------------------------------
+
+def _padded_table_jax(n, pos, dirs, fx, fy, p):
+    """JAX's _centre_offset_table on the G-buffer zero-padded to (16, 128)
+    multiples, as _march_pallas calls it."""
+    h, w = pos.shape[1:]
+    hp, wp = -(-h // 16) * 16, -(-w // 128) * 128
+    pad = ((0, 0), (0, hp - h), (0, wp - w))
+    return np.asarray(pallas_gi._centre_offset_table(
+        jnp.pad(jnp.asarray(n), pad), jnp.pad(jnp.asarray(pos), pad),
+        jnp.asarray(dirs), jnp.float32(fx), jnp.float32(fy), h, w, p,
+        (hp // 16, wp // 128)))
+
+
+@pytest.mark.parametrize("h,w", [(32, 200), (16, 144), (48, 160)])
+def test_centre_offset_table_matches_pallas_gi(h, w):
+    """Integer keys, so equal or not: no mismatch is allowed. When the
+    last column block's centre (column 128 k + 64) lies past the image, as
+    at W = 144, 160 and 800 but not 200, it sits in the zero padding (a
+    zero normal at the origin), as on the TPU."""
+    n, pos, fx, fy = _scene(h, w, seed=1)
+    p = tss.GIParams(**SMALL)
+    dirs = tss.direction_table(p)[0]
+    want = _padded_table_jax(n, pos, dirs, fx, fy, jss.GIParams(**SMALL))
+    got = tss.centre_offset_table(torch.as_tensor(n), torch.as_tensor(pos),
+                                  torch.as_tensor(dirs), fx, fy, p)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert int((got.numpy() != want).sum()) == 0
+    # a padded-centre block projects every sample to the image centre:
+    # its column offset is the image centre's minus the block centre's,
+    # whatever the direction and step
+    centre = (w // 128) * 128 + 64
+    if centre >= w:
+        dx = got.numpy()[:, -1] % 4096 - 2048
+        assert (dx == round(w / 2.0) - centre).all()
+
+
+@pytest.mark.parametrize("h,w", [(32, 200), (16, 144)])
+def test_coherent_ssao_ssr_match_pallas_coherent(h, w):
+    """The port's coherent march (plain version of
+    csrc/gi_march_coherent.cu) against the Pallas coherent kernel in
+    interpret mode: SSAO to 1e-5 (same hits, sums in another order), SSR
+    within the Pallas kernel's 11-11-10 RGB quantisation bound (5e-3, as
+    the exact march's test above)."""
+    n, pos, fx, fy = _scene(h, w, seed=1)
+    rgb, albedo, rough, metal, f0 = _ssr_inputs(h, w, seed=2)
+    jp = jss.GIParams(**SMALL)
+    tp = tss.GIParams(**SMALL)
+    assert tp.backend == "pallas"
+    ao_j = np.asarray(pallas_gi.ssao_pallas(
+        jnp.asarray(n), jnp.asarray(pos), fx, fy, jp, interpret=True,
+        mode="coherent"))
+    ao_t = tss.ssao(torch.as_tensor(n), torch.as_tensor(pos), fx, fy, tp)
+    np.testing.assert_allclose(ao_t.numpy(), ao_j, rtol=1e-5, atol=1e-5)
+    cj, gj = pallas_gi.ssr_pallas(
+        *map(jnp.asarray, (n, pos, rgb, albedo, rough, metal, f0)), fx, fy,
+        jp, interpret=True, mode="coherent")
+    ct, gt = tss.ssr(*map(torch.as_tensor, (n, pos, rgb, albedo, rough,
+                                            metal, f0)), fx, fy, tp)
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=5e-3,
+                               atol=5e-3)
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=5e-3,
+                               atol=5e-3)
+    # the exact march gives another occlusion on this scene
+    ao_x = tss.ssao(torch.as_tensor(n), torch.as_tensor(pos), fx, fy,
+                    tss.GIParams(**SMALL, backend="pallas_exact"))
+    assert float((ao_x - ao_t).abs().max()) > 0.05
+
+
+def test_default_gi_params_run_the_coherent_march():
+    """Default GIParams (backend "pallas") select the coherent march, as
+    in JAX: the port's SSAO equals JAX's default SSAO (to 1e-5, sums in
+    another order) at the default direction grid."""
+    n, pos, fx, fy = _scene(16, 144, seed=4)
+    assert tss.GIParams().backend == jss.GIParams().backend == "pallas"
+    want = np.asarray(jss.ssao(jnp.asarray(n), jnp.asarray(pos), fx, fy,
+                               jss.GIParams()))
+    got = tss.ssao(torch.as_tensor(n), torch.as_tensor(pos), fx, fy,
+                   tss.GIParams())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "jnp"])
+def test_ssr_gradient_is_albedo_only(backend):
+    """JAX's SSR passes gradient to albedo only (color = stop_gradient(gd)
+    * albedo): d(sum color)/d(albedo) = gd, nothing to the G-buffer, RGB,
+    f0, roughness or metallic. The port's albedo gradient equals JAX's
+    (exactly for the exact march; within the Pallas RGB quantisation,
+    5e-3, for the coherent one)."""
+    h, w = 16, 144
+    n, pos, fx, fy = _scene(h, w, seed=3)
+    ins = (n, pos) + tuple(_ssr_inputs(h, w, seed=5))
+    jp = jss.GIParams(**SMALL, backend=backend)
+    jgrads = jax.grad(lambda *a: jss.ssr(*a, fx, fy, jp)[0].sum(),
+                      argnums=tuple(range(7)))(*map(jnp.asarray, ins))
+    leaves = [torch.tensor(a, requires_grad=True) for a in ins]
+    color, gd = tss.ssr(*leaves, fx, fy, tss.GIParams(**SMALL,
+                                                      backend=backend))
+    color.sum().backward()
+    tol = 1e-6 if backend == "jnp" else 5e-3
+    np.testing.assert_allclose(leaves[3].grad.numpy(), gd.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(leaves[3].grad.numpy(), np.asarray(jgrads[3]),
+                               rtol=tol, atol=tol)
+    assert np.abs(np.asarray(jgrads[3])).max() > 0
+    for i in (0, 1, 2, 4, 5, 6):
+        assert not np.asarray(jgrads[i]).any()
+        assert leaves[i].grad is None or not leaves[i].grad.any(), i
