@@ -1,14 +1,19 @@
-"""NVS evaluation CLI (port of gi_gs_tpu/cli/render_cli.py; ref render.py
-render_set): renders the test views through the full PBR + SSR path,
-saves the image products and writes PSNR/SSIM to `NVS.json`. LPIPS needs
-pretrained VGG weights that are not shipped; `lpips_avg` is null, as in
-the JAX CLI. Albedo evaluation waits for a later slice.
+"""NVS and albedo evaluation CLI (port of gi_gs_tpu/cli/render_cli.py;
+ref render.py render_set :115-395, eval_brdf :496-635): renders the test
+views through the full PBR + SSR path, saves the image products and
+writes PSNR/SSIM(/LPIPS) to `NVS.json`. LPIPS needs VGG weights that are
+not shipped: `--lpips_weights FILE` computes `lpips_avg` (utils/lpips.py
+names the formats), without it the value is null, as in the JAX CLI.
+`--brdf_eval` adds the TensoIR albedo evaluation (`eval_albedo`).
 
     python -m gi_gs_tpu_torch.cli.render_cli --model_path OUT \
-        --source_path SCENE [--device cpu] [--max_views N]
+        --source_path SCENE [--device cpu] [--max_views N] [--brdf_eval] \
+        [--lpips_weights FILE]
 
 The model directory holds the port's `chkpnt{it}.pt` (see
-utils/checkpoint.py) and, optionally, `cfg_args.json`.
+utils/checkpoint.py) and, optionally, `cfg_args.json`. `--skip_train`
+and `--pbr` are accepted for the JAX CLI's command lines; as there, the
+test views are rendered through the PBR path either way.
 """
 from __future__ import annotations
 
@@ -31,8 +36,9 @@ from ..scene.cameras import compute_view_dirs
 from ..scene.dataset import load_scene
 from ..utils import checkpoint as ckpt
 from ..utils import image_utils, math_utils, timing
+from ..utils import lpips as lpips_mod
 from ..utils.device import resolve_device
-from ..utils.image_io import write_png
+from ..utils.image_io import read_png, write_png
 
 
 def save_image(path: str, img, chw: bool = True) -> None:
@@ -140,15 +146,75 @@ def _save_products(out_root, idx, name, out, gt):
     save_image(os.path.join(out_root, "gt", f"{idx:05d}.png"), gt)
 
 
-def main(argv=None):
-    parser = ArgumentParser(description="gi_gs_tpu_torch NVS rendering/eval")
-    config_mod.add_args(parser)
-    parser.add_argument("--checkpoint", type=str, default="")
-    parser.add_argument("--max_views", type=int, default=0)
-    parser.add_argument("--device", type=str, default=None,
-                        help="torch device (default: cuda)")
-    args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+def eval_albedo(cfg, state, records, out_dir: str, device: torch.device
+                ) -> Dict:
+    """Albedo evaluation with a 3-channel median-ratio rescale (TensoIR
+    protocol, render.py:496-635; JAX render_cli.eval_albedo). GT albedo is
+    `<name>_albedo.png` in the scene's test folder or its root. The ratio
+    is the per-channel median of GT / prediction over the masked pixels of
+    the whole set; writes `albedo_{i:05d}.png` and `albedo_ratio.json`
+    under `out_dir`. Also returns the per-view render seconds
+    (`view_seconds`, device synchronised)."""
+    gts, preds, masks, seconds = [], [], [], []
+    bg = torch.zeros(3, device=device)
+    for rec in records:
+        gt_path = None
+        for cand in (os.path.join(cfg.model.source_path, "test",
+                                  f"{rec.name}_albedo.png"),
+                     os.path.join(cfg.model.source_path,
+                                  f"{rec.name}_albedo.png")):
+            if os.path.exists(cand):
+                gt_path = cand
+                break
+        if gt_path is None:
+            continue
+        gts.append(read_png(gt_path).astype(np.float32)[..., :3] / 255.0)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            res = render(rec.camera(device), state.params, bg, cfg.raster,
+                         cfg.gi, inference=True, pad_normal=True,
+                         derive_normal=False, compute_occlusion=False)
+            preds.append(res["albedo_map"].cpu().numpy().transpose(1, 2, 0))
+        seconds.append(time.perf_counter() - t0)
+        masks.append(rec.alpha[0] > 0.5)
+    if not gts:
+        return {"error": "no GT albedo found"}
+
+    all_gt = np.concatenate([g[m] for g, m in zip(gts, masks)], 0)
+    all_pr = np.concatenate([p[m] for p, m in zip(preds, masks)], 0)
+    ratio = np.median(all_gt / np.clip(all_pr, 1e-6, None), axis=0)
+
+    psnrs, ssims = [], []
+    os.makedirs(out_dir, exist_ok=True)
+    for i, (g, p, m) in enumerate(zip(gts, preds, masks)):
+        scaled = np.clip(p * ratio, 0, 1) * m[..., None]
+        gm = g * m[..., None]
+        a = torch.as_tensor(scaled.transpose(2, 0, 1), device=device)
+        b = torch.as_tensor(gm.transpose(2, 0, 1), device=device)
+        psnrs.append(float(image_utils.psnr(a, b)))
+        ssims.append(float(image_utils.ssim(a, b)))
+        save_image(os.path.join(out_dir, f"albedo_{i:05d}.png"), scaled,
+                   chw=False)
+    with open(os.path.join(out_dir, "albedo_ratio.json"), "w") as f:
+        json.dump({"albedo_ratio": ratio.tolist()}, f)
+    return {"albedo_psnr": float(np.mean(psnrs)),
+            "albedo_ssim": float(np.mean(ssims)),
+            "albedo_ratio": ratio.tolist(), "view_seconds": seconds}
+
+
+def find_checkpoint(model_path: str) -> str:
+    """The last `chkpnt*.pt` of `model_path` in sorted (lexicographic)
+    order, as the JAX CLIs pick theirs: chkpnt9 sorts after chkpnt10."""
+    cands = sorted(f for f in os.listdir(model_path)
+                   if f.startswith("chkpnt") and f.endswith(".pt"))
+    if not cands:
+        raise FileNotFoundError(f"no chkpnt*.pt in {model_path}")
+    return os.path.join(model_path, cands[-1])
+
+
+def eval_config(args) -> config_mod.Config:
+    """cfg_args.json of the model (if any) under the command line; the
+    exact march unless --backend names one."""
     cfg = config_mod.load_cfg(args.model_path) \
         if os.path.exists(os.path.join(args.model_path or "",
                                        "cfg_args.json")) else config_mod.Config()
@@ -156,17 +222,29 @@ def main(argv=None):
     if args.backend is None:
         # Eval runs the exact march whatever backend cfg_args.json saved
         # (the coherent march is a training-speed approximation), as the
-        # JAX CLI does; --backend pallas asks for the coherent one.
+        # JAX CLIs do; --backend pallas asks for the coherent one.
         cfg.gi = cfg.gi._replace(backend="pallas_exact")
+    return cfg
 
-    ckpt_path = args.checkpoint
-    if not ckpt_path:
-        cands = sorted(f for f in os.listdir(cfg.model.model_path)
-                       if f.startswith("chkpnt") and f.endswith(".pt"))
-        if not cands:
-            raise FileNotFoundError(
-                f"no chkpnt*.pt in {cfg.model.model_path}")
-        ckpt_path = os.path.join(cfg.model.model_path, cands[-1])
+
+def main(argv=None):
+    parser = ArgumentParser(description="gi_gs_tpu_torch NVS rendering/eval")
+    config_mod.add_args(parser)
+    parser.add_argument("--checkpoint", type=str, default="")
+    parser.add_argument("--skip_train", action="store_true", default=True)
+    parser.add_argument("--pbr", action="store_true")
+    parser.add_argument("--brdf_eval", action="store_true")
+    parser.add_argument("--max_views", type=int, default=0)
+    parser.add_argument("--lpips_weights", type=str, default="",
+                        help="VGG-LPIPS weights file (.npz or torch .pt); "
+                             "lpips_avg is null when absent")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device (default: cuda)")
+    args = parser.parse_args(argv)
+    device = resolve_device(args.device)
+    lpips_w = lpips_mod.maybe_load(args.lpips_weights)
+    cfg = eval_config(args)
+    ckpt_path = args.checkpoint or find_checkpoint(cfg.model.model_path)
     params, cubemap, extra = ckpt.load_state(ckpt_path, device)
     state = types.SimpleNamespace(params=params, cubemap=cubemap)
     iteration = extra.get("iteration", 0)
@@ -190,7 +268,7 @@ def main(argv=None):
                envmap / max(float(envmap.max()), 1e-6), chw=False)
 
     bg = torch.zeros(3, device=device)
-    psnrs, ssims, view_seconds = [], [], []
+    psnrs, ssims, lpipss, view_seconds, lpips_seconds = [], [], [], [], []
     for idx, rec in enumerate(views):
         cam = rec.camera(device)
         image = torch.as_tensor(rec.image, device=device)
@@ -205,6 +283,10 @@ def main(argv=None):
         pred = torch.clamp(out["render_rgb"], 0, 1)
         psnrs.append(float(image_utils.psnr(pred, gt)))
         ssims.append(float(image_utils.ssim(pred, gt)))
+        if lpips_w is not None:
+            t0 = time.perf_counter()
+            lpipss.append(lpips_mod.lpips(pred, gt, lpips_w))
+            lpips_seconds.append(time.perf_counter() - t0)
         if int(out["overflow"]) > 0:
             print(f"view {idx}: {int(out['overflow'])} instances beyond "
                   f"cap_instances={cfg.raster.cap_instances} were dropped",
@@ -213,11 +295,18 @@ def main(argv=None):
 
     results = {"psnr_avg": float(np.mean(psnrs)),
                "ssim_avg": float(np.mean(ssims)),
-               "lpips_avg": None}
+               "lpips_avg": float(np.mean(lpipss)) if lpipss else None}
+    albedo_seconds = []
+    if args.brdf_eval:
+        albedo = eval_albedo(cfg, state, views,
+                             os.path.join(out_root, "albedo"), device)
+        albedo_seconds = albedo.pop("view_seconds", [])
+        results.update(albedo)
     with open(os.path.join(out_root, "pbr", "NVS.json"), "w") as f:
         json.dump(results, f, indent=4)
     print(json.dumps(results, indent=2))
-    return dict(results, view_seconds=view_seconds)
+    return dict(results, view_seconds=view_seconds,
+                lpips_seconds=lpips_seconds, albedo_seconds=albedo_seconds)
 
 
 if __name__ == "__main__":

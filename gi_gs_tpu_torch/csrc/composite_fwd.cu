@@ -2,7 +2,10 @@
 // G-buffer plus the final transmittance.
 //
 // Replaces: gi_gs_tpu/ops/rasterize/pallas_composite.py:composite_fwd_pallas
-//   (_fwd_kernel) with peak=False. Semantics of the jnp oracle
+//   (_fwd_kernel), both variants: peak=False (gigs_composite_fwd) and
+//   peak=True (gigs_composite_fwd_peak), which also writes the
+//   argmax-weight ("peak") depth and view position of each pixel.
+//   Semantics of the jnp oracle
 //   gi_gs_tpu/ops/rasterize/composite.py:_fwd_impl: alpha = min(0.99,
 //   op * exp(power)); an instance passes if power <= 0 and alpha >= 1/255;
 //   a pass whose tentative transmittance falls below 1e-4 does not
@@ -21,6 +24,16 @@
 //   whose inclusive transmittance is non-increasing within a chunk), and
 //   a block-wide vote (__syncthreads_count) ends the tile once every pixel
 //   is saturated.
+// Peak (forward.cu:577-583): the walk keeps the largest weight w = alpha*T
+//   seen so far and the [depth, pos_view xyz] (row columns 17:21) of the
+//   first contributing instance that raised it strictly; an instance that
+//   only ties an earlier maximum does not replace it. The Pallas body gets
+//   the same selection with a first-max-in-chunk argmax; the sequential
+//   walk gets it from the strict compare. The row is already in shared
+//   memory, so the variant keeps five more values (the maximum and the
+//   four peak columns) and adds no loads. The kernel is
+//   a template on kPeak: the peak=False instantiation carries none of it,
+//   so serving and training run the walk alone.
 #include "common.cuh"
 
 #include <math.h>
@@ -32,12 +45,13 @@ constexpr int kRow = 21;   // means2d 2 | conic 3 | opacity | color 3 | aux 12
 constexpr int kCh = 16;    // color 3 | ones | normal 3 | albedo 3 | rough |
                            // metal | depth | pos 3
 
+template <bool kPeak>
 __global__ void __launch_bounds__(1024) composite_fwd_kernel(
     const float* __restrict__ table, const int* __restrict__ ids,
     const int* __restrict__ tile_start, const int* __restrict__ tile_count,
     int n_max, int grid_x, int tile_w, int tile_h, float alpha_clamp,
     float alpha_min, float t_min, float* __restrict__ accum,
-    float* __restrict__ final_t) {
+    float* __restrict__ final_t, float* __restrict__ peak) {
   __shared__ float rows[kBatch][kRow];
   const int t = blockIdx.x;
   const int p = threadIdx.x;
@@ -56,6 +70,8 @@ __global__ void __launch_bounds__(1024) composite_fwd_kernel(
   float acc[kCh];
 #pragma unroll
   for (int c = 0; c < kCh; ++c) acc[c] = 0.0f;
+  float max_w = 0.0f;
+  float pk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 
   for (int base = 0; base < count; base += kBatch) {
     const int nb = min(kBatch, count - base);
@@ -88,6 +104,13 @@ __global__ void __launch_bounds__(1024) composite_fwd_kernel(
         acc[3] += w;
 #pragma unroll
         for (int c = 4; c < kCh; ++c) acc[c] += row[c + 5] * w;
+        if constexpr (kPeak) {
+          if (w > max_w) {
+            max_w = w;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) pk[c] = row[17 + c];
+          }
+        }
         T = test_t;
       }
     }
@@ -98,6 +121,11 @@ __global__ void __launch_bounds__(1024) composite_fwd_kernel(
 #pragma unroll
   for (int c = 0; c < kCh; ++c) out[static_cast<size_t>(c) * P] = acc[c];
   final_t[static_cast<size_t>(t) * P + p] = T;
+  if constexpr (kPeak) {
+    float* pout = peak + static_cast<size_t>(t) * 4 * P + p;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) pout[static_cast<size_t>(c) * P] = pk[c];
+  }
 }
 
 }  // namespace
@@ -108,11 +136,29 @@ GIGS_API int gigs_composite_fwd(
     int tile_h, float alpha_clamp, float alpha_min, float t_min, void* accum,
     void* final_t, void* stream) {
   cudaSetDevice(device);
-  composite_fwd_kernel<<<num_tiles, tile_w * tile_h, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  composite_fwd_kernel<false><<<num_tiles, tile_w * tile_h, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(table), static_cast<const int*>(ids),
       static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
       n_max, grid_x, tile_w, tile_h, alpha_clamp, alpha_min, t_min,
-      static_cast<float*>(accum), static_cast<float*>(final_t));
+      static_cast<float*>(accum), static_cast<float*>(final_t), nullptr);
+  GIGS_RETURN_LAUNCH_STATUS();
+}
+
+// As gigs_composite_fwd, plus peak [T, 4, P]: depth and pos_view xyz of
+// each pixel's argmax-weight instance (0 where nothing contributed).
+GIGS_API int gigs_composite_fwd_peak(
+    int device, const void* table, const void* ids, const void* tile_start,
+    const void* tile_count, int num_tiles, int n_max, int grid_x, int tile_w,
+    int tile_h, float alpha_clamp, float alpha_min, float t_min, void* accum,
+    void* final_t, void* peak, void* stream) {
+  cudaSetDevice(device);
+  composite_fwd_kernel<true><<<num_tiles, tile_w * tile_h, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(table), static_cast<const int*>(ids),
+      static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
+      n_max, grid_x, tile_w, tile_h, alpha_clamp, alpha_min, t_min,
+      static_cast<float*>(accum), static_cast<float*>(final_t),
+      static_cast<float*>(peak));
   GIGS_RETURN_LAUNCH_STATUS();
 }

@@ -3,10 +3,14 @@ pbr/light.py CubemapLight): the base [6, R, R, 3] cubemap is prefiltered
 into a specular mip stack plus the diffuse irradiance
 (`build_mips_packed`, differentiable: phase-2 training takes its gradient
 through the mip chain and the prefilter), and sampled on the lat-long
-grid for export and the env-TV loss (`make_latlong_sampler`)."""
+grid for export and the env-TV loss (`make_latlong_sampler`). A new
+environment for relighting comes from an HDRI (`load_hdr`) resampled onto
+the cube (`latlong_to_cubemap`)."""
 from __future__ import annotations
 
 import functools
+import math
+import os
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -127,3 +131,128 @@ def export_envmap(base: torch.Tensor, res: Sequence[int] = (512, 1024)
     """Cubemap -> lat-long image [H, W, 3] (ref export_envmap,
     pbr/light.py:172-208)."""
     return cm.sample_cubemap(base, envmap_dirs(res, base.device))
+
+
+def latlong_to_cubemap(latlong: torch.Tensor, res: int) -> torch.Tensor:
+    """HDRI lat-long [H, W, 3] -> cubemap [6, res, res, 3] on its device,
+    bilinear with the longitude wrapped (JAX light.py:170-195; ref
+    render.py latlong_to_cubemap:64-83)."""
+    dirs = torch.as_tensor(cm.texel_dirs(res), dtype=torch.float32,
+                           device=latlong.device)
+    # Inverse of the envmap_dirs parameterisation.
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    theta = torch.arccos(torch.clamp(y, -1.0, 1.0))        # gy * pi
+    phi = torch.arctan2(x, -z)                             # gx * pi
+    H, W = latlong.shape[:2]
+    v = theta / math.pi * H - 0.5
+    u = (phi / math.pi + 1.0) * 0.5 * W - 0.5
+    u0 = torch.floor(u)
+    v0 = torch.clamp(torch.floor(v), 0, H - 1)
+    du, dv = u - u0, torch.clamp(v - v0, 0.0, 1.0)
+    u0i = u0.to(torch.int64)
+    u0w, u1 = u0i % W, (u0i + 1) % W
+    v0i = v0.to(torch.int64)
+    v1 = torch.clamp(v0i + 1, 0, H - 1)
+    flat = latlong.reshape(-1, latlong.shape[-1]).to(torch.float32)
+    c00, c01 = flat[v0i * W + u0w], flat[v0i * W + u1]
+    c10, c11 = flat[v1 * W + u0w], flat[v1 * W + u1]
+    du, dv = du[..., None], dv[..., None]
+    return (c00 * (1 - du) * (1 - dv) + c01 * du * (1 - dv) +
+            c10 * (1 - du) * dv + c11 * du * dv)
+
+
+def decode_hdr(path: str) -> Tuple[np.ndarray, str]:
+    """Radiance .hdr / .exr -> ([H, W, 3] f32 RGB, the decoder's name).
+    Decoder order as JAX's `load_hdr` (light.py:211-245): cv2, then
+    imageio, then the built-in Radiance decoder (.hdr only). A missing
+    file, or a file no decoder takes, raises."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    try:
+        import cv2
+        img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        if img is not None:
+            return (cv2.cvtColor(img, cv2.COLOR_BGR2RGB).astype(np.float32),
+                    "cv2")
+    except ImportError:
+        pass
+    try:
+        import imageio.v3 as iio
+    except ImportError:
+        iio = None
+    if iio is not None:
+        try:
+            return np.asarray(iio.imread(path), np.float32)[..., :3], \
+                "imageio"
+        except Exception as e:
+            # Only .hdr has a further decoder; for any other format report
+            # imageio's own failure.
+            if not path.lower().endswith(".hdr"):
+                raise RuntimeError(f"imageio failed to decode {path}") from e
+    if path.lower().endswith(".hdr"):
+        return _read_radiance_hdr(path), "built-in"
+    raise RuntimeError(
+        f"cannot decode {path}: no cv2/imageio available and the built-in "
+        "decoder handles Radiance .hdr only")
+
+
+def load_hdr(path: str) -> np.ndarray:
+    """Radiance .hdr / .exr -> [H, W, 3] f32 RGB (ref read_hdr,
+    render.py:32-45); see `decode_hdr`."""
+    return decode_hdr(path)[0]
+
+
+def _read_radiance_hdr(path: str) -> np.ndarray:
+    """Minimal Radiance RGBE (.hdr) decoder (JAX light.py:248-306): header,
+    '-Y H +X W' resolution line, then per-scanline new-style RLE
+    (2, 2, hi, lo marker) or flat RGBE. Exposure/colorcorr headers are
+    ignored, as cv2 does."""
+    with open(path, "rb") as f:
+        if not f.readline().startswith(b"#?"):
+            raise ValueError(f"{path}: not a Radiance HDR file")
+        while f.readline() not in (b"\n", b"\r\n", b""):
+            pass
+        res = f.readline().split()
+        if len(res) != 4 or res[0] != b"-Y" or res[2] != b"+X":
+            raise ValueError(f"{path}: unsupported resolution line {res}")
+        h, w = int(res[1]), int(res[3])
+        data = np.frombuffer(f.read(), np.uint8)
+
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    pos = 0
+    for y in range(h):
+        if pos + 4 <= data.size and data[pos] == 2 and data[pos + 1] == 2 \
+                and (int(data[pos + 2]) << 8 | int(data[pos + 3])) == w:
+            pos += 4  # new-style RLE scanline, one component at a time
+            for c in range(4):
+                x = 0
+                while x < w:
+                    count = int(data[pos])
+                    pos += 1
+                    if count > 128:       # run
+                        rgbe[y, x:x + count - 128, c] = data[pos]
+                        pos += 1
+                        x += count - 128
+                    else:                 # literal
+                        rgbe[y, x:x + count, c] = data[pos:pos + count]
+                        pos += count
+                        x += count
+        else:                             # flat scanline
+            if pos + 4 * w > data.size:
+                raise ValueError(
+                    f"{path}: truncated scanline {y} (old-style RLE files "
+                    "are not supported by the built-in decoder)")
+            rgbe[y] = data[pos:pos + 4 * w].reshape(w, 4)
+            pos += 4 * w
+    if pos != data.size:
+        # A clean decode consumes the buffer exactly; leftovers mean the
+        # scanline structure was misparsed (old-style RLE read as flat).
+        raise ValueError(
+            f"{path}: {data.size - pos} trailing bytes after decode: "
+            "unsupported scanline encoding (old-style RLE?)")
+    exp = rgbe[..., 3].astype(np.int32)
+    # mantissa * 2^(e-136), as cv2/stb (Radiance's own convention adds 0.5
+    # to the mantissa; the reference decodes through cv2)
+    scale = np.where(exp == 0, 0.0, np.ldexp(1.0, exp - 136)).astype(
+        np.float32)
+    return rgbe[..., :3].astype(np.float32) * scale[..., None]

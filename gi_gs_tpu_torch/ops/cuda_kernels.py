@@ -36,8 +36,8 @@ SOURCES = ("expand.cu", "composite_fwd.cu", "composite_bwd.cu", "gi_march.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
-KERNELS = ("expand", "composite_fwd", "composite_bwd", "gi_march",
-           "gi_march_coherent", "patch_fwd", "patch_bwd")
+KERNELS = ("expand", "composite_fwd", "composite_fwd_peak", "composite_bwd",
+           "gi_march", "gi_march_coherent", "patch_fwd", "patch_bwd")
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -54,6 +54,8 @@ _SIGNATURES = {
                     _I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
     "gigs_composite_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                            _F, _P, _P, _P],
+    "gigs_composite_fwd_peak": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                _F, _F, _P, _P, _P, _P],
     "gigs_composite_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _I, _I, _F, _F, _F, _P, _P],
     "gigs_gi_march": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,

@@ -5,6 +5,12 @@ the final transmittance, with the alpha clamp 0.99, alpha_min 1/255, the
 power > 0 reject and the sticky done flag at T < 1e-4 (forward.cu:423-633),
 and its backward (backward.cu:404-630).
 
+`composite_fwd(..., peak=True)` also returns the argmax-weight ("peak")
+depth and view position of each pixel (forward.cu:577-583), for the
+inference-only argmax-depth render: the kernel `composite_fwd_peak` on
+CUDA tensors, `_composite_fwd_plain(..., peak=True)` (the port of
+`compute_peak_depth_pos`) on CPU tensors.
+
 `composite` is a `torch.autograd.Function` over the [N, 21] table:
 * forward: `composite_fwd`, the CUDA kernel `csrc/composite_fwd.cu` on
   CUDA tensors, `_composite_fwd_plain` (the port of `_fwd_impl`, chunked
@@ -71,11 +77,14 @@ def _features(row: torch.Tensor) -> torch.Tensor:
 
 def _composite_fwd_plain(table, ids, tile_start, tile_count,
                          cfg: RasterConfig, grid,
-                         work: Optional[dict] = None):
+                         work: Optional[dict] = None, peak: bool = False):
     """Port of `_fwd_impl` (composite.py:143-173). Returns accum
     [T, 16, P] and final_T [T, P]. With `work`, also counts in
     work["pairs"] the (instance, pixel) pairs evaluated before each
-    pixel's done flag."""
+    pixel's done flag. With `peak`, also returns peak [T, 4, P]: the
+    [depth, pos_view xyz] of each pixel's argmax-weight instance, selected
+    as JAX's `compute_peak_depth_pos` (pipeline.py:66-113) does: the first
+    maximum within a chunk, then a strictly greater weight across chunks."""
     dev = table.device
     T = tile_start.shape[0]
     P = cfg.pixels_per_tile
@@ -89,6 +98,8 @@ def _composite_fwd_plain(table, ids, tile_start, tile_count,
     done = torch.zeros((T, P), dtype=torch.bool, device=dev)
     acc = torch.zeros((T, NUM_CH, P), dtype=torch.float32, device=dev)
     kk = torch.arange(K, dtype=torch.int64, device=dev)
+    max_w = torch.zeros((T, P), dtype=torch.float32, device=dev)
+    pk = torch.zeros((T, 4, P), dtype=torch.float32, device=dev)
     pairs = 0
     for c in range(n_steps):
         pos = tile_start.long()[:, None] + c * K + kk[None, :]
@@ -110,6 +121,15 @@ def _composite_fwd_plain(table, ids, tile_start, tile_count,
         contrib = pass_mask & (t_incl >= cfg.t_min) & ~done[:, None, :]
         w = torch.where(contrib, a * t_prev, torch.zeros_like(a))
         acc = acc + torch.einsum("tkc,tkp->tcp", _features(row), w)
+        if peak:
+            # torch.argmax returns the first index of a tie
+            best_k = torch.argmax(w, dim=1)                # [T, P]
+            best_w = torch.gather(w, 1, best_k[:, None, :])[:, 0]
+            cand = torch.gather(row[..., 17:21].transpose(1, 2), 2,
+                                best_k[:, None, :].expand(T, 4, P))
+            upd = best_w > max_w
+            pk = torch.where(upd[:, None, :], cand, pk)
+            max_w = torch.where(upd, best_w, max_w)
         if work is not None:
             # pairs a sequential walk evaluates: valid instances up to and
             # including the one that sets the pixel's done flag
@@ -123,18 +143,20 @@ def _composite_fwd_plain(table, ids, tile_start, tile_count,
         done = done | (pass_mask & (t_incl < cfg.t_min)).any(dim=1)
     if work is not None:
         work["pairs"] = pairs
-    return acc, t_cur
+    return (acc, t_cur, pk) if peak else (acc, t_cur)
 
 
 def composite_fwd(table: torch.Tensor, ids: torch.Tensor,
                   tile_start: torch.Tensor, tile_count: torch.Tensor,
-                  cfg: RasterConfig, grid: Tuple[int, int]):
+                  cfg: RasterConfig, grid: Tuple[int, int],
+                  peak: bool = False):
     """Blend sorted instances into per-tile accumulators (replaces
-    pallas_composite.composite_fwd_pallas with peak=False). Returns accum
-    [T, 16, P] and final_T [T, P]."""
+    pallas_composite.composite_fwd_pallas). Returns accum [T, 16, P] and
+    final_T [T, P]; with `peak` (the kernel `composite_fwd_peak`) also
+    peak [T, 4, P], each pixel's argmax-weight [depth, pos_view xyz]."""
     if not table.is_cuda:
         return _composite_fwd_plain(table, ids, tile_start, tile_count,
-                                    cfg, grid)
+                                    cfg, grid, peak=peak)
     dev = table.device
     T = grid[0] * grid[1]
     P = cfg.pixels_per_tile
@@ -151,14 +173,18 @@ def composite_fwd(table: torch.Tensor, ids: torch.Tensor,
     ck.check(tile_count, "tile_count", torch.int32, (T,), dev)
     accum = torch.empty((T, NUM_CH, P), dtype=torch.float32, device=dev)
     final_t = torch.empty((T, P), dtype=torch.float32, device=dev)
+    outs = (accum, final_t)
+    if peak:
+        outs += (torch.empty((T, 4, P), dtype=torch.float32, device=dev),)
     if T == 0:
-        return accum, final_t
-    ck.launch("composite_fwd", "gigs_composite_fwd", dev,
+        return outs
+    name = "composite_fwd_peak" if peak else "composite_fwd"
+    ck.launch(name, f"gigs_{name}", dev,
               table.data_ptr(), ids.data_ptr(), tile_start.data_ptr(),
               tile_count.data_ptr(), T, cfg.chunks_per_tile * cfg.chunk,
               grid[1], cfg.tile_w, cfg.tile_h, cfg.alpha_clamp,
-              cfg.alpha_min, cfg.t_min, accum.data_ptr(), final_t.data_ptr())
-    return accum, final_t
+              cfg.alpha_min, cfg.t_min, *(o.data_ptr() for o in outs))
+    return outs
 
 
 def _border_mask(px: torch.Tensor, py: torch.Tensor, image_hw) -> torch.Tensor:

@@ -1,15 +1,18 @@
 """End-to-end rasterization (port of gi_gs_tpu/ops/rasterize/pipeline.py):
 preprocess -> bin/sort -> composite -> G-buffer images, differentiable
 with respect to the Gaussian attributes (and the `ndc_offset` hook)
-through the compositing's custom backward (`argmax_depth=False`)."""
+through the compositing's custom backward (`argmax_depth=False`).
+`argmax_depth=True` is the inference-only peak-depth render: one forward
+launch (`composite_fwd` with `peak=True`) on a detached table."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
 
-from .binning import bin_and_sort
-from .composite import composite, composite_table
+from .binning import Binning, bin_and_sort
+from .composite import _composite_fwd_plain, composite, composite_fwd, \
+    composite_table
 from .config import RasterConfig
 from .preprocess import preprocess
 from ...utils import timing
@@ -53,6 +56,32 @@ def _ref_quotient(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     return num + (val - num).detach()
 
 
+def mark_visible(means3d: torch.Tensor, w2c: torch.Tensor,
+                 near: float = 0.2) -> torch.Tensor:
+    """Frustum-culling visibility (ref markVisible -> in_frustum,
+    rasterizer_impl.cu:790-803, auxiliary.h:150-176: near plane only)."""
+    z = (means3d[:, 0] * w2c[2, 0] + means3d[:, 1] * w2c[2, 1] +
+         means3d[:, 2] * w2c[2, 2] + w2c[2, 3])
+    return z > near
+
+
+def compute_peak_depth_pos(table: torch.Tensor, binning: Binning,
+                           cfg: RasterConfig, grid, height: int, width: int):
+    """Argmax-weight ("peak") depth/position selection by the plain chunked
+    walk (port of JAX's jnp oracle, pipeline.py:66-113; ref
+    forward.cu:577-583,619-622). Forward only. Returns (peak_depth
+    [1, H, W], peak_pos [3, H, W]). `rasterize(argmax_depth=True)` takes
+    the peak rows from its one compositing launch instead; this oracle is
+    what the tests and the card check compare that launch with."""
+    with torch.no_grad():
+        _, _, pk = _composite_fwd_plain(table, binning.ids,
+                                        binning.tile_start,
+                                        binning.tile_count, cfg, grid,
+                                        peak=True)
+    img = _tiles_to_image(pk, grid, cfg, height, width)
+    return img[0:1], img[1:4]
+
+
 def count_instances(means3d, cov3d, w2c, full_proj, tanfovx, tanfovy,
                     height: int, width: int, cfg: RasterConfig,
                     opacity: Optional[torch.Tensor] = None) -> int:
@@ -85,7 +114,14 @@ def rasterize(means3d: torch.Tensor, cov3d: torch.Tensor,
               bg_color: torch.Tensor,      # [3]
               cfg: RasterConfig,
               ndc_offset: Optional[torch.Tensor] = None,
-              inference: bool = False) -> RasterOutput:
+              inference: bool = False,
+              argmax_depth: bool = False) -> RasterOutput:
+    """argmax_depth is INFERENCE-ONLY (the reference has no backward for
+    it, forward.cu:577-583): the table is detached and one forward launch
+    gives the accumulators and the peak rows, as JAX's Pallas branch
+    (pipeline.py:211-227); depth and pos_view are then the peak instance's
+    where the pixel is covered (pipeline.py:254-261), and no output
+    carries a gradient."""
     grid = cfg.grid(height, width)
     dev = means3d.device
     with timing.stage("preprocess", dev):
@@ -99,7 +135,12 @@ def rasterize(means3d: torch.Tensor, cov3d: torch.Tensor,
     with timing.stage("composite", dev):
         table = composite_table(pre, opacity, color, normal, albedo,
                                 roughness, metallic)
-        accum, final_t = composite(table, b, cfg, grid, (height, width))
+        if argmax_depth:
+            accum, final_t, peak = composite_fwd(
+                table.detach(), b.ids, b.tile_start, b.tile_count, cfg, grid,
+                peak=True)
+        else:
+            accum, final_t = composite(table, b, cfg, grid, (height, width))
 
     img = _tiles_to_image(accum, grid, cfg, height, width)   # [16, H, W]
     t_img = _tiles_to_image(final_t[:, None, :], grid, cfg, height, width)
@@ -108,8 +149,14 @@ def rasterize(means3d: torch.Tensor, cov3d: torch.Tensor,
     out_color = img[0:3] + t_img * bg_color[:, None, None]
     out_normal = img[4:7]
     out_rough = img[10:11] + (t_img if inference else 0.0)  # forward.cu:612-616
-    out_depth = _ref_quotient(img[12:13], o)
-    out_pos = _ref_quotient(img[13:16], o)
+    if argmax_depth:
+        pk_img = _tiles_to_image(peak, grid, cfg, height, width)
+        zero = torch.zeros((), dtype=o.dtype, device=o.device)
+        out_depth = torch.where(o > 1e-6, pk_img[0:1], zero)
+        out_pos = torch.where(o > 1e-6, pk_img[1:4], zero)
+    else:
+        out_depth = _ref_quotient(img[12:13], o)
+        out_pos = _ref_quotient(img[13:16], o)
 
     # View-space normal, normalised in the kernel with no backward path
     # (forward.cu:600-605).
@@ -123,3 +170,18 @@ def rasterize(means3d: torch.Tensor, cov3d: torch.Tensor,
         roughness=out_rough, metallic=img[11:12], final_t=t_img,
         radii=pre.radius, visibility=pre.radius > 0,
         overflow=b.overflow, max_tile_count=b.max_tile_count)
+
+
+def rasterize_lite(means3d, cov3d, opacity, color, w2c, full_proj, tanfovx,
+                   tanfovy, height: int, width: int, bg_color,
+                   cfg: RasterConfig, argmax_depth: bool = False):
+    """Colour/depth/opacity-only path (ref liteRenderCUDA,
+    forward.cu:279-418; exposed for baking, unused by training): the full
+    rasterizer with zero normal and BRDF attributes. Returns (color
+    [3, H, W], opacity [1, H, W], depth [1, H, W], final_t [1, H, W])."""
+    zeros3 = torch.zeros_like(color)
+    zeros1 = torch.zeros_like(opacity)
+    out = rasterize(means3d, cov3d, opacity, color, zeros3, zeros3, zeros1,
+                    zeros1, w2c, full_proj, tanfovx, tanfovy, height, width,
+                    bg_color, cfg, argmax_depth=argmax_depth)
+    return out.color, out.opacity, out.depth, out.final_t

@@ -50,11 +50,18 @@ def render(camera: Camera, pc: GaussianParams, bg_color: torch.Tensor,
            override_color: Optional[torch.Tensor] = None,
            inference: bool = False, pad_normal: bool = False,
            derive_normal: bool = True, compute_occlusion: bool = True,
+           argmax_depth: bool = False,
            ndc_offset: Optional[torch.Tensor] = None
            ) -> Dict[str, torch.Tensor]:
     """Full G-buffer render of one view on the device of `pc`.
     ndc_offset: optional [N, 2] zeros; its gradient is the reference's
-    screenspace_points.grad, the densification statistic."""
+    screenspace_points.grad, the densification statistic.
+
+    argmax_depth is INFERENCE-ONLY: depth and view positions are the
+    argmax-weight instance's (one `composite_fwd_peak` launch on CUDA
+    tensors), and the whole G-buffer, colour included, is detached, as on
+    JAX's Pallas path (JAX renderer.py:44-49). The reference never
+    differentiates it either (forward.cu:577-583 has no backward)."""
     resolve_device(pc.device)
     H, W = camera.height, camera.width
     with timing.stage("activations", pc.device):
@@ -67,7 +74,8 @@ def render(camera: Camera, pc: GaussianParams, bg_color: torch.Tensor,
     out = rasterize(
         pc.xyz, cov3d, opacity, color, *attrs, camera.w2c, camera.full_proj,
         camera.tanfovx, camera.tanfovy, H, W, bg_color, cfg,
-        ndc_offset=ndc_offset, inference=inference)
+        ndc_offset=ndc_offset, inference=inference,
+        argmax_depth=argmax_depth)
 
     with timing.stage("derive", pc.device):
         normal_from_depth, depth_pos_filter = _derive_maps(

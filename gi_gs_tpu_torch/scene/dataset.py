@@ -1,7 +1,8 @@
 """Scene loading (port of the Blender branch of
 gi_gs_tpu/scene/dataset.py; ref readNerfSyntheticInfo,
 scene/dataset_readers.py:283-325). Host side: numpy camera records plus
-the initial point cloud and the NeRF++ radius. COLMAP scenes raise until
+the initial point cloud and the NeRF++ radius; frames are resized as
+`--resolution` asks (PIL, imported only then). COLMAP scenes raise until
 their slice is ported."""
 from __future__ import annotations
 
@@ -67,13 +68,28 @@ def _target_resolution(orig_w, orig_h, resolution, resolution_scale=1.0):
     return int(orig_w / scale), int(orig_h / scale)
 
 
+def _resize(pixels: np.ndarray, size) -> np.ndarray:
+    """[H, W, C] uint8 -> resized to size = (w, h) by PIL's `resize` with
+    its default filter, the call JAX's loader makes (dataset.py:62-68), so
+    the pixels are equal. PIL is needed only here."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            f"--resolution resizes the images to {size[0]}x{size[1]}, which "
+            "needs PIL (pip package Pillow); render at the native size "
+            "(--resolution 1) without it") from e
+    img = Image.fromarray(pixels[..., 0] if pixels.shape[2] == 1 else pixels)
+    out = np.asarray(img.resize(size))
+    return out[..., None] if out.ndim == 2 else out
+
+
 def _record_from(uid, name, R, T, fovx, fovy, pixels: np.ndarray,
                  resolution) -> CameraRecord:
+    size = _target_resolution(pixels.shape[1], pixels.shape[0], resolution)
+    if size != (pixels.shape[1], pixels.shape[0]):
+        pixels = _resize(pixels, size)
     h, w = pixels.shape[:2]
-    if _target_resolution(w, h, resolution) != (w, h):
-        raise NotImplementedError(
-            f"resolution {resolution} resizes {name}; image resizing is "
-            "ported in a later slice (render at the native size)")
     arr = pixels.astype(np.float32).transpose(2, 0, 1) / 255.0
     if arr.shape[0] == 4:
         image, alpha = arr[:3], arr[3:4]

@@ -29,6 +29,11 @@ def test_port_imports_without_jax_or_reference_package():
             "gi_gs_tpu_torch.train.losses", "gi_gs_tpu_torch.train.optim",
             "gi_gs_tpu_torch.train.densify",
             "gi_gs_tpu_torch.train.trainer"} <= set(mods)
+    assert {"gi_gs_tpu_torch.cli.relight_cli",
+            "gi_gs_tpu_torch.cli.relight_eval_cli",
+            "gi_gs_tpu_torch.cli.normal_eval_cli",
+            "gi_gs_tpu_torch.cli.collect_cli",
+            "gi_gs_tpu_torch.utils.lpips"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'gi_gs_tpu'):\n"
@@ -49,7 +54,8 @@ def test_port_imports_without_jax_or_reference_package():
 def test_no_kernel_is_built_at_import():
     from gi_gs_tpu_torch.ops import cuda_kernels as ck
     assert ck._lib is None
-    assert set(ck.launches) == {"expand", "composite_fwd", "composite_bwd",
+    assert set(ck.launches) == {"expand", "composite_fwd",
+                                "composite_fwd_peak", "composite_bwd",
                                 "gi_march", "gi_march_coherent", "patch_fwd",
                                 "patch_bwd"}
 
@@ -57,7 +63,8 @@ def test_no_kernel_is_built_at_import():
 def test_cuda_default_entry_points_raise_without_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the CUDA default is valid")
-    from gi_gs_tpu_torch.cli import render_cli, train_cli
+    from gi_gs_tpu_torch.cli import (relight_cli, relight_eval_cli,
+                                     render_cli, train_cli)
     from gi_gs_tpu_torch.models.gaussians import (FIELDS, create_from_points,
                                                   params_from_numpy)
     from gi_gs_tpu_torch.scene.cameras import make_camera
@@ -67,6 +74,12 @@ def test_cuda_default_entry_points_raise_without_gpu(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--model_path", str(tmp_path),
                         "--source_path", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        relight_cli.main(["--model_path", str(tmp_path), "--source_path",
+                          str(tmp_path), "--hdri", str(tmp_path / "e.hdr")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        relight_eval_cli.main(["--output_dir", str(tmp_path),
+                               "--gt_dir", str(tmp_path)])
     pts = np.zeros((4, 3), np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_from_points(pts, pts, 8)

@@ -1,4 +1,4 @@
-"""The seven CUDA kernels against their plain PyTorch versions on the card
+"""The eight CUDA kernels against their plain PyTorch versions on the card
 (csrc/*.cu, built at first use). Marked `cuda`: they skip without a GPU.
 On a machine with one (without JAX, so skip the tests' conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py"""
@@ -41,6 +41,27 @@ def _scene(dev, n=4000, w=200, h=120, seed=0):
     return cfg, pre, op, feats, (h, w)
 
 
+def tie_table(gap):
+    """Two Gaussians with the same footprint centred on pixel (5, 3) of
+    one 8x32 tile, opacities 0.2 then 0.25, and `gap` zero-opacity
+    instances between them. At the centre alpha is the opacity, and in
+    f32 0.25 * (1 - 0.2) == 0.2: the two weights tie exactly, in the
+    oracle's cumulative product, the Pallas kernel's and the sequential
+    walk alike. The first (depth 2) must win the tie."""
+    n = gap + 2
+    table = np.zeros((n, 21), np.float32)
+    table[:, 0:2] = (5.0, 3.0)
+    table[:, 2:5] = (0.02, 0.0, 0.02)
+    table[:, 5] = 0.0
+    table[0, 5], table[-1, 5] = 0.2, 0.25
+    table[:, 6:17] = np.random.RandomState(0).uniform(0, 1, (n, 11))
+    table[:, 17] = np.arange(n) + 2.0
+    table[:, 18:21] = np.arange(n)[:, None] * np.array([1.0, -1.0, 0.5])
+    f = np.float32
+    assert f(0.25) * (f(1) - f(0.2)) == f(0.2)
+    return table
+
+
 def test_expand_matches_plain(dev):
     cfg, pre, _, _, (h, w) = _scene(dev)
     before = ck.launches["expand"]
@@ -63,6 +84,46 @@ def test_composite_matches_plain(dev):
                                             b.tile_count, cfg, grid)
     torch.testing.assert_close(ka, pa, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(kt, pt, rtol=1e-5, atol=1e-6)
+
+
+def test_composite_fwd_peak_matches_plain(dev):
+    """The peak kernel's accumulator and final-T rows equal the peak=False
+    kernel's bit for bit (the same walk); its peak rows match the plain
+    version's on all but near-tie pixels (<= 0.1% of covered pixels: the
+    plain cumulative product and the sequential product round apart);
+    a constructed exact tie resolves to the first instance on the card."""
+    cfg, pre, op, feats, (h, w) = _scene(dev, seed=4)
+    b = binning.bin_and_sort(pre, h, w, cfg)
+    table = torch.cat([pre.means2d, pre.conic, op, feats[:, :11],
+                       pre.depth[:, None], pre.pos_view], 1).contiguous()
+    grid = cfg.grid(h, w)
+    args = (table, b.ids, b.tile_start, b.tile_count, cfg, grid)
+    before = dict(ck.launches)
+    ka, kt, kp = composite.composite_fwd(*args, peak=True)
+    assert ck.launches["composite_fwd_peak"] == \
+        before["composite_fwd_peak"] + 1
+    assert ck.launches["composite_fwd"] == before["composite_fwd"]
+    fa, ft = composite.composite_fwd(*args)
+    assert torch.equal(ka, fa) and torch.equal(kt, ft)
+    pa, pt, pp = composite._composite_fwd_plain(*args, peak=True)
+    torch.testing.assert_close(ka, pa, rtol=1e-5, atol=1e-5)
+    covered = pa[:, 3] > 1e-6
+    differ = (kp != pp).any(dim=1) & covered
+    assert int(covered.sum()) > 1000
+    assert int(differ.sum()) <= 1e-3 * int(covered.sum())
+
+    for gap in (0, 7):
+        tie = torch.as_tensor(tie_table(gap), device=dev)
+        ids = torch.arange(16, dtype=torch.int32, device=dev) % tie.shape[0]
+        ts = torch.zeros(1, dtype=torch.int32, device=dev)
+        tc = torch.full((1,), tie.shape[0], dtype=torch.int32, device=dev)
+        tcfg = RasterConfig(tile_h=8, tile_w=32, cap_tile=256, chunk=8)
+        _, _, k = composite.composite_fwd(tie, ids, ts, tc, tcfg, (1, 1),
+                                          peak=True)
+        _, _, p = composite._composite_fwd_plain(tie, ids, ts, tc, tcfg,
+                                                 (1, 1), peak=True)
+        assert torch.equal(k, p)
+        assert torch.equal(k[0, :, 3 * 32 + 5], tie[0, 17:21])
 
 
 def test_composite_bwd_matches_plain(dev):
