@@ -69,6 +69,12 @@ Phases (any failure exits non-zero):
 Phase 4 also holds composite_fwd_peak against its plain version on view 0
 (accumulator rows bit-equal to composite_fwd's, <= 0.1% of covered pixels
 with another peak), and phase 6 the argmax render on CUDA against CPU.
+Phases 4 and 8 print, for the compositing kernels, the histogram of
+instances per tile, the pairs the plain walk evaluates beside those left
+after the kernels' sub-tile cull (the plain cull on the card; the bound
+counts these, `bound_ms_unculled` all of them), and each kernel's
+registers, shared memory and resident blocks per SM; phase 8 also checks
+that two composite_bwd launches give bit-identical rows.
 Then the kernel table as one JSON line (eight kernels), the card line, and
 last {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -162,6 +168,44 @@ def kernel_entry(name, source, replaces, err, ok, tol, ms, plain_ms, nbytes,
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None, **extra)
+
+
+def tile_histogram(tile_count) -> dict:
+    """Tiles per instance-count bin and the count's quantiles."""
+    import torch
+    tc = tile_count.to(torch.float64)
+    edges = [0, 1, 256, 1024, 2048, 4096, 8192, float("inf")]
+    bins = {f"{int(lo)}-{hi - 1 if hi != float('inf') else 'max'}":
+            int(((tc >= lo) & (tc < hi)).sum())
+            for lo, hi in zip(edges[:-1], edges[1:])}
+    q = torch.quantile(tc, torch.tensor([0.1, 0.5, 0.9, 0.99],
+                                        device=tc.device, dtype=torch.float64))
+    return dict(tiles=int(tc.numel()), bins=bins,
+                p10_p50_p90_p99=[float(v) for v in q], max=int(tc.max()),
+                mean=float(tc.mean()))
+
+
+def composite_work(work: dict, nbytes: float, per_contrib: float = 0.0):
+    """The compositing kernels' operations bound and its keys: 13 flops
+    per (instance, pixel) pair that the sub-tile walk evaluates (the plain
+    walk's pairs left after the plain cull, on the card), plus
+    `per_contrib` per contributing pair (every contributing pair survives
+    the cull). `bound_ms_unculled` counts every pair of the plain walk, the
+    PR 4 definition, for comparison."""
+    pairs, culled = work["pairs"], work["culled_pairs"]
+    contrib = work.get("contrib", 0)
+    log(f"  pairs {pairs}, after the sub-tile cull {culled} "
+        f"({culled / max(pairs, 1):.3f})")
+    unculled_ms = bound(nbytes, 13.0 * pairs + per_contrib * contrib)[0]
+    return (13.0 * culled + per_contrib * contrib,
+            dict(pairs=pairs, culled_pairs=culled,
+                 bound_ms_unculled=unculled_ms))
+
+
+def log_resources(composite, name, cfg, dev) -> dict:
+    res = composite.kernel_resources(name, cfg, dev)
+    log(f"  {name} resources at tile {cfg.tile_h}x{cfg.tile_w}: {res}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +352,11 @@ def kernel_phase(torch, dev, cfg, state, cam, light_arrays, spec):
         ok = (torch.allclose(ka, pa, rtol=1e-5, atol=1e-3) and
               torch.allclose(kt, pt, rtol=1e-5, atol=1e-5))
         T, P = grid[0] * grid[1], rc.pixels_per_tile
+        hist = tile_histogram(b.tile_count)
+        log(f"  view 0 tile_count: {hist}")
+        nbytes = (table.numel() * 4 + b.ids.numel() * 4 + T * 8
+                  + T * 17 * P * 4)
+        flops, pair_keys = composite_work(work, nbytes)
         entry("composite_fwd", "gi_gs_tpu_torch/csrc/composite_fwd.cu",
               "gi_gs_tpu/ops/rasterize/pallas_composite.py:238", err, ok,
               "rtol 1e-5, atol 1e-3 (a pixel whose T crosses 1e-4 in another "
@@ -316,9 +365,9 @@ def kernel_phase(torch, dev, cfg, state, cam, light_arrays, spec):
               kernel_ms(lambda: composite.composite_fwd(*args),
                         "composite_fwd", 10),
               cuda_ms(lambda: composite._composite_fwd_plain(*args), 2),
-              table.numel() * 4 + b.ids.numel() * 4 + T * 8 + T * 17 * P * 4,
-              13.0 * work["pairs"], pairs=work["pairs"],
-              max_tile_count=int(b.max_tile_count))
+              nbytes, flops, **pair_keys, max_tile_count=int(b.max_tile_count),
+              tile_count=hist,
+              resources=log_resources(composite, "composite_fwd", rc, dev))
         # -- composite_fwd_peak (the argmax-depth render's forward) ----------
         pka, pkt, pkp = composite.composite_fwd(*args, peak=True)
         work = {}
@@ -339,6 +388,9 @@ def kernel_phase(torch, dev, cfg, state, cam, light_arrays, spec):
         if n_flip > 1e-3 * n_cov:
             fail(f"composite_fwd_peak: {n_flip} of {n_cov} covered pixels "
                  "pick another peak than the plain version")
+        nbytes = (table.numel() * 4 + b.ids.numel() * 4 + T * 8
+                  + T * (17 + 4) * P * 4)
+        flops, pair_keys = composite_work(work, nbytes)
         entry("composite_fwd_peak", "gi_gs_tpu_torch/csrc/composite_fwd.cu",
               "gi_gs_tpu/ops/rasterize/pallas_composite.py:238 (peak=True; "
               "body pallas_composite.py:165-181,207-208)", err,
@@ -352,10 +404,10 @@ def kernel_phase(torch, dev, cfg, state, cam, light_arrays, spec):
                         "composite_fwd_peak", 10),
               cuda_ms(lambda: composite._composite_fwd_plain(*args,
                                                              peak=True), 1),
-              table.numel() * 4 + b.ids.numel() * 4 + T * 8
-              + T * (17 + 4) * P * 4,
-              13.0 * work["pairs"], pairs=work["pairs"],
-              peak_flip_pixels=n_flip, covered_pixels=n_cov)
+              nbytes, flops, **pair_keys, peak_flip_pixels=n_flip,
+              covered_pixels=n_cov,
+              resources=log_resources(composite, "composite_fwd_peak", rc,
+                                      dev))
         # -- gi_march (SSAO without RGB, SSR with RGB) -------------------------
         res = render(cam, p, torch.zeros(3, device=dev), rc, gi,
                      inference=True, pad_normal=True)
@@ -909,6 +961,9 @@ def composite_bwd_phase(torch, dev, res, data):
         k_rows = composite.composite_bwd(*bargs)
         work = {}
         p_rows = composite._composite_bwd_plain(*bargs, work=work)
+        if not torch.equal(composite.composite_bwd(*bargs), k_rows):
+            fail("composite_bwd: two launches on one input differ")
+        log("  composite_bwd: two launches give bit-identical rows")
         torch.cuda.synchronize()
         red = lambda r: composite.reduce_sorted_instance_grads(
             r, b.inv_perm, b.offsets)
@@ -926,6 +981,11 @@ def composite_bwd_phase(torch, dev, res, data):
         red_rel = red_err / float(exact.abs().max())
         cap = b.ids.numel()
         T, P = grid[0] * grid[1], rc.pixels_per_tile
+        hist = tile_histogram(b.tile_count)
+        log(f"  training view tile_count: {hist}")
+        nbytes = (table.numel() * 4 + cap * 4 + T * 8 + T * 22 * P * 4
+                  + cap * composite.TABLE_DIM * 4)
+        flops, pair_keys = composite_work(work, nbytes, 50.0)
         return kernel_entry(
             "composite_bwd", "gi_gs_tpu_torch/csrc/composite_bwd.cu",
             "gi_gs_tpu/ops/rasterize/pallas_composite.py:455", err, ok,
@@ -936,14 +996,12 @@ def composite_bwd_phase(torch, dev, res, data):
             kernel_ms(lambda: composite.composite_bwd(*bargs),
                       "composite_bwd", 5),
             cuda_ms(lambda: composite._composite_bwd_plain(*bargs), 1),
-            table.numel() * 4 + cap * 4 + T * 8 + T * 22 * P * 4
-            + cap * composite.TABLE_DIM * 4,
-            13.0 * work["pairs"] + 50.0 * work["contrib"],
-            pairs=work["pairs"], contributing_pairs=work["contrib"],
+            nbytes, flops, **pair_keys, contributing_pairs=work["contrib"],
             cap_tile=rc.cap_tile, max_tile_count=mtc,
             reduction_f32_vs_f64_abs=red_err,
             reduction_f32_vs_f64_rel=red_rel,
-            reduction_ms=cuda_ms(lambda: red(k_rows), 5))
+            reduction_ms=cuda_ms(lambda: red(k_rows), 5), tile_count=hist,
+            resources=log_resources(composite, "composite_bwd", rc, dev))
 
 
 def train_parity_phase(torch, dev, config_mod, params_from_numpy, rng):

@@ -11,121 +11,170 @@
 //   a pass whose tentative transmittance falls below 1e-4 does not
 //   contribute and ends the pixel (forward.cu:423-633).
 //
-// Bound on the H100: operations. Every (instance, pixel) pair of a tile
-//   costs the conic power, one exp and, when it contributes, 16
-//   multiply-adds; the bytes (gathered 84-byte rows, the [T, 17, P]
-//   output) are small beside that.
-// Design: one block per tile, one thread per pixel (tile_h * tile_w <=
-//   1024). The tile's sorted instances are gathered by id into shared
-//   memory in batches of 256 rows, so each row is read from global memory
-//   once per tile and broadcast to every pixel; no [cap, 128] instance
-//   table is materialised. Each thread runs the sequential renderCUDA
+// Bound on the H100: operations. Every (instance, pixel) pair the walk
+//   evaluates after the sub-tile cull below costs the conic power, one exp
+//   and, when it contributes, 16 multiply-adds (chip_smoke.py counts 13
+//   flops a pair); the bytes (gathered 84-byte rows, the [T, 17, P]
+//   output) are a little less. Most pairs are still rejects: a median
+//   splat covers a few pixels of a 256-pixel sub-tile.
+// Design (composite_walk.cuh): each 16x64 tile is four 16x16 sub-tile
+//   CTAs of 256 threads, one pixel each, so several CTAs are resident per
+//   SM and a barrier stalls 256 threads, not 1024. Each CTA gathers its
+//   tile's sorted rows by id into shared memory in batches of 256 with
+//   cp.async (the next batch in flight), drops the rows whose
+//   opacity-aware extent misses its rectangle (an exact cull: a dropped
+//   pair is one the walk would have skipped), and walks the survivors in
+//   order; a warp skips, as a whole, a surviving row whose extent misses
+//   its two pixel rows. Each thread runs the sequential renderCUDA
 //   recurrence (equivalent to the oracle's chunked cumulative product,
-//   whose inclusive transmittance is non-increasing within a chunk), and
-//   a block-wide vote (__syncthreads_count) ends the tile once every pixel
-//   is saturated.
+//   whose inclusive transmittance is non-increasing within a chunk). The
+//   walk leaves a row only by `continue`, so a warp's lanes reconverge at
+//   every row: with the one-block-per-tile kernel's `break` at the done
+//   flag, lanes that reject ran ahead of lanes that blend and the warp
+//   stayed split until the batch's barrier, which made the sub-tile walk
+//   several times slower than the kernel it replaces
+//   (tools/composite_variants.py, fwd_break_on_done). A CTA ends once its
+//   own 256 pixels are saturated. Per pixel the sequence of evaluated
+//   instances and the
+//   arithmetic are those of the one-block-per-tile kernel before it, so
+//   the outputs are bit for bit the same, except that a NaN power fails
+//   the test, as in the plain version and the backward. No cluster: the forward's
+//   sub-tiles share nothing, and the four gathers of a row hit L2 (the
+//   sub-tiles of a tile are adjacent block indices).
 // Peak (forward.cu:577-583): the walk keeps the largest weight w = alpha*T
 //   seen so far and the [depth, pos_view xyz] (row columns 17:21) of the
 //   first contributing instance that raised it strictly; an instance that
 //   only ties an earlier maximum does not replace it. The Pallas body gets
 //   the same selection with a first-max-in-chunk argmax; the sequential
-//   walk gets it from the strict compare. The row is already in shared
-//   memory, so the variant keeps five more values (the maximum and the
-//   four peak columns) and adds no loads. The kernel is
-//   a template on kPeak: the peak=False instantiation carries none of it,
-//   so serving and training run the walk alone.
+//   walk gets it from the strict compare. The kernel is a template on
+//   kPeak: the peak=False instantiation carries none of it.
+// Resources on the H100 (ptxas; the occupancy calculator, printed by
+//   chip_smoke.py): 64 registers per thread in both variants (8 and 16
+//   bytes of local spill), 46,208 bytes of static shared memory, 256
+//   threads, 4 resident blocks per SM.
 #include "common.cuh"
+#include "composite_walk.cuh"
 
-#include <math.h>
+using namespace gigs_walk;
 
 namespace {
 
 constexpr int kBatch = 256;
-constexpr int kRow = 21;   // means2d 2 | conic 3 | opacity | color 3 | aux 12
-constexpr int kCh = 16;    // color 3 | ones | normal 3 | albedo 3 | rough |
-                           // metal | depth | pos 3
 
 template <bool kPeak>
-__global__ void __launch_bounds__(1024) composite_fwd_kernel(
+__global__ void __launch_bounds__(kSubPixels) composite_fwd_kernel(
     const float* __restrict__ table, const int* __restrict__ ids,
     const int* __restrict__ tile_start, const int* __restrict__ tile_count,
     int n_max, int grid_x, int tile_w, int tile_h, float alpha_clamp,
     float alpha_min, float t_min, float* __restrict__ accum,
     float* __restrict__ final_t, float* __restrict__ peak) {
-  __shared__ float rows[kBatch][kRow];
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int P = blockDim.x;
-  const int trow = t / grid_x;
-  const int tcol = t - trow * grid_x;
-  const int ly = p / tile_w;
-  const int lx = p - ly * tile_w;
-  const float pxf = static_cast<float>(tcol * tile_w + lx);
-  const float pyf = static_cast<float>(trow * tile_h + ly);
-  const int start = tile_start[t];
-  const int count = min(tile_count[t], n_max);
+  __shared__ float rows[2][kBatch][kRow];
+  __shared__ int list[kBatch];
+  __shared__ float2 ybox[kBatch];
+  __shared__ int scratch[32];
+  const Layout L = subtile_layout(tile_w, tile_h);
+  const SubTile s = locate(L, grid_x, tile_w, tile_h);
+  const float2 wrows = warp_rows(L, s);
+  const int P = tile_w * tile_h;
+  const float pxf = static_cast<float>(s.x0 + s.lx);
+  const float pyf = static_cast<float>(s.y0 + s.ly);
+  const int start = tile_start[s.tile];
+  const int count = min(tile_count[s.tile], n_max);
 
   float T = 1.0f;
-  bool done = false;
+  bool done = !s.active;
   float acc[kCh];
 #pragma unroll
   for (int c = 0; c < kCh; ++c) acc[c] = 0.0f;
   float max_w = 0.0f;
   float pk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 
-  for (int base = 0; base < count; base += kBatch) {
-    const int nb = min(kBatch, count - base);
-    __syncthreads();  // the previous batch is fully consumed
-    for (int e = p; e < nb * kRow; e += P) {
-      const int r = e / kRow;
-      const int c = e - r * kRow;
-      rows[r][c] = table[static_cast<size_t>(ids[start + base + r]) * kRow + c];
-    }
-    __syncthreads();
-    if (!done) {
-      for (int k = 0; k < nb; ++k) {
-        const float* row = rows[k];
-        const float dx = row[0] - pxf;
-        const float dy = row[1] - pyf;
-        const float power =
-            -0.5f * (row[2] * dx * dx + row[4] * dy * dy) - row[3] * dx * dy;
-        if (power > 0.0f) continue;
-        const float alpha = fminf(alpha_clamp, row[5] * expf(power));
-        if (alpha < alpha_min) continue;
-        const float test_t = T * (1.0f - alpha);
-        if (test_t < t_min) {
-          done = true;
-          break;
-        }
-        const float w = alpha * T;
-        acc[0] += row[6] * w;
-        acc[1] += row[7] * w;
-        acc[2] += row[8] * w;
-        acc[3] += w;
-#pragma unroll
-        for (int c = 4; c < kCh; ++c) acc[c] += row[c + 5] * w;
-        if constexpr (kPeak) {
-          if (w > max_w) {
-            max_w = w;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) pk[c] = row[17 + c];
-          }
-        }
-        T = test_t;
-      }
-    }
-    if (__syncthreads_count(done) == P) break;
+  if (count > 0) {
+    gather_rows_async(rows[0], table, ids, start, min(kBatch, count));
   }
+  __pipeline_commit();
+  for (int base = 0, buf = 0; base < count; base += kBatch, buf ^= 1) {
+    const int nb = min(kBatch, count - base);
+    const int next = base + kBatch;
+    // rows[buf ^ 1] was last read in the previous batch, which the vote
+    // at its end closed
+    if (next < count)
+      gather_rows_async(rows[buf ^ 1], table, ids, start + next,
+                        min(kBatch, count - next));
+    __pipeline_commit();
+    __pipeline_wait_prior(1);
+    __syncthreads();
+    const float(*rb)[kRow] = rows[buf];
+    const int n_keep =
+        compact(rb, nb, s, alpha_min, list, ybox, nullptr, scratch);
+    // Every early-out of a row is a `continue` and the loop's one exit is
+    // its condition, so a warp's lanes reconverge at every row (a `break`
+    // on the done flag left the warp split until the batch's barrier); a
+    // row whose extent misses the warp's image rows is skipped by the
+    // whole warp.
+    for (int j = 0; j < n_keep; ++j) {
+      const float2 yb = ybox[j];
+      if (done || yb.y < wrows.x || yb.x > wrows.y) continue;
+      const float* row = rb[list[j]];
+      const float dx = row[0] - pxf;
+      const float dy = row[1] - pyf;
+      const float power =
+          -0.5f * (row[2] * dx * dx + row[4] * dy * dy) - row[3] * dx * dy;
+      if (!(power <= 0.0f)) continue;   // a NaN power fails, as in the plain
+      const float alpha = fminf(alpha_clamp, row[5] * expf(power));
+      if (alpha < alpha_min) continue;
+      const float test_t = T * (1.0f - alpha);
+      if (test_t < t_min) {
+        done = true;
+        continue;
+      }
+      const float w = alpha * T;
+      acc[0] += row[6] * w;
+      acc[1] += row[7] * w;
+      acc[2] += row[8] * w;
+      acc[3] += w;
+#pragma unroll
+      for (int c = 4; c < kCh; ++c) acc[c] += row[c + 5] * w;
+      if constexpr (kPeak) {
+        if (w > max_w) {
+          max_w = w;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) pk[c] = row[17 + c];
+        }
+      }
+      T = test_t;
+    }
+    if (__syncthreads_count(done) == static_cast<int>(blockDim.x)) break;
+  }
+  __pipeline_wait_prior(0);   // no copy in flight when the CTA exits
+  if (!s.active) return;
 
-  float* out = accum + static_cast<size_t>(t) * kCh * P + p;
+  float* out = accum + static_cast<size_t>(s.tile) * kCh * P + s.p;
 #pragma unroll
   for (int c = 0; c < kCh; ++c) out[static_cast<size_t>(c) * P] = acc[c];
-  final_t[static_cast<size_t>(t) * P + p] = T;
+  final_t[static_cast<size_t>(s.tile) * P + s.p] = T;
   if constexpr (kPeak) {
-    float* pout = peak + static_cast<size_t>(t) * 4 * P + p;
+    float* pout = peak + static_cast<size_t>(s.tile) * 4 * P + s.p;
 #pragma unroll
     for (int c = 0; c < 4; ++c) pout[static_cast<size_t>(c) * P] = pk[c];
   }
+}
+
+template <bool kPeak>
+int launch(const void* table, const void* ids, const void* tile_start,
+           const void* tile_count, int num_tiles, int n_max, int grid_x,
+           int tile_w, int tile_h, float alpha_clamp, float alpha_min,
+           float t_min, void* accum, void* final_t, void* peak, void* stream) {
+  const Layout L = subtile_layout(tile_w, tile_h);
+  composite_fwd_kernel<kPeak>
+      <<<num_tiles * L.nx * L.ny, subtile_threads(L), 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(table), static_cast<const int*>(ids),
+          static_cast<const int*>(tile_start),
+          static_cast<const int*>(tile_count), n_max, grid_x, tile_w, tile_h,
+          alpha_clamp, alpha_min, t_min, static_cast<float*>(accum),
+          static_cast<float*>(final_t), static_cast<float*>(peak));
+  GIGS_RETURN_LAUNCH_STATUS();
 }
 
 }  // namespace
@@ -136,13 +185,9 @@ GIGS_API int gigs_composite_fwd(
     int tile_h, float alpha_clamp, float alpha_min, float t_min, void* accum,
     void* final_t, void* stream) {
   cudaSetDevice(device);
-  composite_fwd_kernel<false><<<num_tiles, tile_w * tile_h, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), static_cast<const int*>(ids),
-      static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
-      n_max, grid_x, tile_w, tile_h, alpha_clamp, alpha_min, t_min,
-      static_cast<float*>(accum), static_cast<float*>(final_t), nullptr);
-  GIGS_RETURN_LAUNCH_STATUS();
+  return launch<false>(table, ids, tile_start, tile_count, num_tiles, n_max,
+                       grid_x, tile_w, tile_h, alpha_clamp, alpha_min, t_min,
+                       accum, final_t, nullptr, stream);
 }
 
 // As gigs_composite_fwd, plus peak [T, 4, P]: depth and pos_view xyz of
@@ -153,12 +198,19 @@ GIGS_API int gigs_composite_fwd_peak(
     int tile_h, float alpha_clamp, float alpha_min, float t_min, void* accum,
     void* final_t, void* peak, void* stream) {
   cudaSetDevice(device);
-  composite_fwd_kernel<true><<<num_tiles, tile_w * tile_h, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), static_cast<const int*>(ids),
-      static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
-      n_max, grid_x, tile_w, tile_h, alpha_clamp, alpha_min, t_min,
-      static_cast<float*>(accum), static_cast<float*>(final_t),
-      static_cast<float*>(peak));
-  GIGS_RETURN_LAUNCH_STATUS();
+  return launch<true>(table, ids, tile_start, tile_count, num_tiles, n_max,
+                      grid_x, tile_w, tile_h, alpha_clamp, alpha_min, t_min,
+                      accum, final_t, peak, stream);
+}
+
+// Registers, shared memory and resident blocks per SM of either variant at
+// a tile shape (gigs_kernel_resources in common.cuh).
+GIGS_API int gigs_composite_fwd_resources(int device, int peak, int tile_w,
+                                          int tile_h, int* out) {
+  cudaSetDevice(device);
+  const int threads = subtile_threads(subtile_layout(tile_w, tile_h));
+  return peak ? gigs_kernel_resources(composite_fwd_kernel<true>, threads, 0,
+                                      out)
+              : gigs_kernel_resources(composite_fwd_kernel<false>, threads, 0,
+                                      out);
 }

@@ -64,7 +64,12 @@ _SIGNATURES = {
                                _F, _F, _I, _I, _P, _P, _P],
     "gigs_patch_fwd": [_I, _P, _P, _P, _I, _I, _I, _P],
     "gigs_patch_bwd": [_I, _P, _P, _P, _I, _I, _I, _P],
+    "gigs_composite_fwd_resources": [_I, _I, _I, _I, _P],
+    "gigs_composite_bwd_resources": [_I, _I, _I, _P],
 }
+RESOURCE_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
+                 "threads", "blocks_per_sm", "local_bytes", "cluster_size",
+                 "active_clusters")
 
 
 def reset_launches() -> None:
@@ -181,6 +186,21 @@ def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
                            f"{lib.gigs_error_string(err).decode()}")
     launches[kernel] += 1
+
+
+def resources(fn_name: str, device: torch.device, *args) -> Dict[str, int]:
+    """A kernel's registers, shared memory and resident blocks per SM at a
+    launch shape, from its C query `fn_name` (`RESOURCE_KEYS`; 0 where the
+    kernel does not report a key). Launches nothing and counts nothing."""
+    lib = library()
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    out = (ctypes.c_int * len(RESOURCE_KEYS))()
+    err = getattr(lib, fn_name)(idx, *args, ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed: "
+                           f"{lib.gigs_error_string(err).decode()}")
+    return dict(zip(RESOURCE_KEYS, out))
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,

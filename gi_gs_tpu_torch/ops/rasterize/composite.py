@@ -68,6 +68,115 @@ def _tile_pixel_coords(grid, cfg: RasterConfig, device):
     return px, py
 
 
+SUBTILE_PIXELS = 256   # pixels (threads) of one compositing CTA
+SUBTILE_W = 16
+
+
+def subtile_layout(cfg: RasterConfig) -> Tuple[int, int, int, int]:
+    """(sw, sh, nx, ny): how the compositing kernels split a tile into
+    nx x ny sub-tiles of sw x sh pixels, one CTA each (the rule of
+    csrc/composite_walk.cuh). A tile of at most 256 pixels is one
+    sub-tile; otherwise sub-tiles are 16x16, or as wide as a tile narrower
+    than 16 columns (as high as a tile lower than 16 rows) and 256 pixels
+    long the other way, ragged at the tile's edges: at most 8 of them."""
+    w, h = cfg.tile_w, cfg.tile_h
+    if w * h <= SUBTILE_PIXELS:
+        return w, h, 1, 1
+    sw = w if w < SUBTILE_W else (
+        min(w, SUBTILE_PIXELS // h) if h < SUBTILE_W else SUBTILE_W)
+    sh = min(h, SUBTILE_PIXELS // sw)
+    return sw, sh, -(-cfg.tile_w // sw), -(-cfg.tile_h // sh)
+
+
+def subtile_rects(cfg: RasterConfig, grid, device):
+    """The sub-tile rectangles of every tile in image pixels, inclusive:
+    x0, x1, y0, y1 as [T, n_sub] f64 tensors, and the sub-tile of each
+    pixel of a tile, [P] int64 (pixel p = ly * tile_w + lx)."""
+    sw, sh, nx, ny = subtile_layout(cfg)
+    ty, tx = grid
+    t = torch.arange(ty * tx, device=device)
+    trow, tcol = t // tx, t % tx
+    sub = torch.arange(nx * ny, device=device)
+    tx0, ty0 = (sub % nx) * sw, (sub // nx) * sh
+    w = torch.clamp(cfg.tile_w - tx0, max=sw)
+    h = torch.clamp(cfg.tile_h - ty0, max=sh)
+    x0 = (tcol[:, None] * cfg.tile_w + tx0[None]).double()
+    y0 = (trow[:, None] * cfg.tile_h + ty0[None]).double()
+    lp = torch.arange(cfg.pixels_per_tile, device=device)
+    pix_sub = (lp // cfg.tile_w // sh) * nx + (lp % cfg.tile_w) // sw
+    return x0, x0 + (w - 1)[None], y0, y0 + (h - 1)[None], pix_sub
+
+
+# Slack of the sub-tile cull (the constants of csrc/composite_walk.cuh).
+_CULL_OP_SLACK = 1e-6
+_CULL_TAU_ABS = 1e-5
+_CULL_TAU_REL = 1e-3
+_CULL_KAPPA = 64.0 / 2.0 ** 24
+_CULL_PX = 0.5
+
+
+def _subtile_keep_plain(rows: torch.Tensor, x0, x1, y0, y1,
+                        alpha_min: float) -> torch.Tensor:
+    """The compositing kernels' exact sub-tile cull: False only where no
+    pixel of the rectangle [x0, x1] x [y0, y1] (inclusive; broadcast
+    against rows[..., 0]) can pass the walk's f32 test `power <= 0 and
+    min(clamp, op * exp(power)) >= alpha_min` for the table row. Used by
+    the tests and chip_smoke.py; the CUDA path culls inside its kernels
+    (`subtile_keep`, csrc/composite_walk.cuh, the same arithmetic).
+
+    A pass needs op * G >= alpha_min with G <= 1 + 2^-22 (exp within 2
+    ulp), so a row with op (1 + 1e-6) < alpha_min passes nowhere.
+    Otherwise a pass needs the computed q = -2 power <= tau + 6.2e-7, tau
+    = 2 ln(op / alpha_min) (taken in f32: under 1e-6 off). With C = [[a,
+    b], [b, c]] positive definite and kappa = ac / det, the f32 error of q
+    is at most (24 kappa + 1) 2^-24 of the exact q (each term has under 6
+    roundings, and a dx^2 + c dy^2 + 2|b dx dy| <= 4 kappa q), so the
+    exact q <= tau' = (tau + 1e-5) (1 + 1e-3) / (1 - 64 kappa 2^-24), and
+    the pixel's offset from the mean lies in the ellipse's bounding box,
+    |dx| <= sqrt(tau' c / det), |dy| <= sqrt(tau' a / det), widened by 0.5
+    px. The box test is squared, in float64: a rectangle left of the box
+    has u = x0 - 0.5 - mx > 0 and u^2 (det - 64 kappa 2^-24 det) > (tau +
+    1e-5) (1 + 1e-3) c. A row whose conic is not positive definite or has
+    64 kappa 2^-24 >= 0.5, or that holds a non-finite value, is kept
+    everywhere. The binning radius (3 sigma) is not a bound: at opacity
+    0.99 pixels past it still pass 1/255."""
+    f32 = rows[..., 5].float()
+    amin32 = torch.tensor(alpha_min, dtype=torch.float32)
+    dead = f32.double() * (1.0 + _CULL_OP_SLACK) < float(amin32)
+    r = rows.double()
+    mx, my, a, b, c = (r[..., i] for i in range(5))
+    det = a * c - b * b
+    dk = det - _CULL_KAPPA * (a * c)
+    bounded = (a > 0) & (dk > 0.5 * det)
+    tau = ((2.0 * torch.log(f32 / amin32).double() + _CULL_TAU_ABS)
+           * (1.0 + _CULL_TAU_REL))
+    tx, ty = tau * c, tau * a
+    left, right = x0 - _CULL_PX - mx, mx - _CULL_PX - x1
+    top, bottom = y0 - _CULL_PX - my, my - _CULL_PX - y1
+    outside = (((left > 0) & (left * left * dk > tx))
+               | ((right > 0) & (right * right * dk > tx))
+               | ((top > 0) & (top * top * dk > ty))
+               | ((bottom > 0) & (bottom * bottom * dk > ty)))
+    return ~(dead | (bounded & outside))
+
+
+def _count_walk(work: dict, row, valid, pass_mask, t_incl, done,
+                cfg: RasterConfig, rects) -> None:
+    """Adds one chunk's (instance, pixel) pairs to work["pairs"]: those a
+    sequential walk evaluates, valid instances up to and including the one
+    that sets the pixel's done flag; and to work["culled_pairs"] those of
+    them that the kernels' sub-tile cull keeps (`_subtile_keep_plain` for
+    the pixel's sub-tile; `rects` is `subtile_rects`)."""
+    x0, x1, y0, y1, pix_sub = rects
+    ended = (pass_mask & (t_incl < cfg.t_min)).int()
+    walked = (valid[..., None] & ~done[:, None, :]
+              & ~((torch.cumsum(ended, dim=1) - ended) > 0))
+    keep = _subtile_keep_plain(row[:, :, None, :], x0[:, None], x1[:, None],
+                               y0[:, None], y1[:, None], cfg.alpha_min)
+    work["pairs"] += int(walked.sum())
+    work["culled_pairs"] += int((walked & keep[:, :, pix_sub]).sum())
+
+
 def _features(row: torch.Tensor) -> torch.Tensor:
     """[.., K, 21] table rows -> [.., K, 16] blended feature vector."""
     ones = torch.ones(row.shape[:-1] + (1,), dtype=row.dtype,
@@ -81,10 +190,12 @@ def _composite_fwd_plain(table, ids, tile_start, tile_count,
     """Port of `_fwd_impl` (composite.py:143-173). Returns accum
     [T, 16, P] and final_T [T, P]. With `work`, also counts in
     work["pairs"] the (instance, pixel) pairs evaluated before each
-    pixel's done flag. With `peak`, also returns peak [T, 4, P]: the
-    [depth, pos_view xyz] of each pixel's argmax-weight instance, selected
-    as JAX's `compute_peak_depth_pos` (pipeline.py:66-113) does: the first
-    maximum within a chunk, then a strictly greater weight across chunks."""
+    pixel's done flag, and in work["culled_pairs"] those left after the
+    kernels' sub-tile cull (`_count_walk`). With `peak`, also returns peak
+    [T, 4, P]: the [depth, pos_view xyz] of each pixel's argmax-weight
+    instance, selected as JAX's `compute_peak_depth_pos`
+    (pipeline.py:66-113) does: the first maximum within a chunk, then a
+    strictly greater weight across chunks."""
     dev = table.device
     T = tile_start.shape[0]
     P = cfg.pixels_per_tile
@@ -100,7 +211,9 @@ def _composite_fwd_plain(table, ids, tile_start, tile_count,
     kk = torch.arange(K, dtype=torch.int64, device=dev)
     max_w = torch.zeros((T, P), dtype=torch.float32, device=dev)
     pk = torch.zeros((T, 4, P), dtype=torch.float32, device=dev)
-    pairs = 0
+    if work is not None:
+        work.update(pairs=0, culled_pairs=0)
+        rects = subtile_rects(cfg, grid, dev)
     for c in range(n_steps):
         pos = tile_start.long()[:, None] + c * K + kk[None, :]
         valid = (c * K + kk)[None, :] < tile_count.long()[:, None]  # [T, K]
@@ -131,18 +244,11 @@ def _composite_fwd_plain(table, ids, tile_start, tile_count,
             pk = torch.where(upd[:, None, :], cand, pk)
             max_w = torch.where(upd, best_w, max_w)
         if work is not None:
-            # pairs a sequential walk evaluates: valid instances up to and
-            # including the one that sets the pixel's done flag
-            ended = pass_mask & (t_incl < cfg.t_min)
-            ended_before = (torch.cumsum(ended.int(), dim=1) - ended.int()) > 0
-            pairs += int((valid[..., None] & ~done[:, None, :]
-                          & ~ended_before).sum())
+            _count_walk(work, row, valid, pass_mask, t_incl, done, cfg, rects)
         t_new = torch.where(contrib, t_incl, torch.full_like(t_incl,
                                                              float("inf")))
         t_cur = torch.minimum(t_new.amin(dim=1), t_cur)
         done = done | (pass_mask & (t_incl < cfg.t_min)).any(dim=1)
-    if work is not None:
-        work["pairs"] = pairs
     return (acc, t_cur, pk) if peak else (acc, t_cur)
 
 
@@ -187,6 +293,19 @@ def composite_fwd(table: torch.Tensor, ids: torch.Tensor,
     return outs
 
 
+def kernel_resources(kernel: str, cfg: RasterConfig,
+                     device: torch.device) -> dict:
+    """Registers, shared memory and resident blocks per SM of the
+    compositing kernel `kernel` ("composite_fwd", "composite_fwd_peak" or
+    "composite_bwd") at cfg's tile shape (`cuda_kernels.resources`)."""
+    if kernel == "composite_bwd":
+        return ck.resources("gigs_composite_bwd_resources", device,
+                            cfg.tile_w, cfg.tile_h)
+    return ck.resources("gigs_composite_fwd_resources", device,
+                        int(kernel == "composite_fwd_peak"), cfg.tile_w,
+                        cfg.tile_h)
+
+
 def _border_mask(px: torch.Tensor, py: torch.Tensor, image_hw) -> torch.Tensor:
     """[T, P] f32: 0 on the 1-px true-image border (and beyond), 1 inside
     — the CUDA edge-normal gradient skip (backward.cu:497-501)."""
@@ -202,8 +321,9 @@ def _composite_bwd_plain(table, ids, tile_start, tile_count, accum4,
     """Port of `_composite_bwd` (composite.py:193-283) up to the sorted
     instance rows: returns [cap, 21] gradient rows, 0 outside every tile's
     (possibly cap_tile-truncated) range. With `work`, also counts the
-    (instance, pixel) pairs a sequential walk evaluates (work["pairs"], as
-    `_composite_fwd_plain`) and those that contribute (work["contrib"])."""
+    (instance, pixel) pairs a sequential walk evaluates, before and after
+    the sub-tile cull (work["pairs"], work["culled_pairs"], as
+    `_composite_fwd_plain`), and those that contribute (work["contrib"])."""
     dev = table.device
     T = tile_start.shape[0]
     P = cfg.pixels_per_tile
@@ -222,7 +342,9 @@ def _composite_bwd_plain(table, ids, tile_start, tile_count, accum4,
     rows = torch.zeros((cap, TABLE_DIM), dtype=torch.float32, device=dev)
     kk = torch.arange(K, dtype=torch.int64, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    pairs = n_contrib = 0
+    if work is not None:
+        work.update(pairs=0, culled_pairs=0, contrib=0)
+        rects = subtile_rects(cfg, grid, dev)
     for c in range(n_steps):
         pos = tile_start.long()[:, None] + c * K + kk[None, :]
         valid = (c * K + kk)[None, :] < tile_count.long()[:, None]  # [T, K]
@@ -268,19 +390,14 @@ def _composite_bwd_plain(table, ids, tile_start, tile_count, accum4,
             dfeat[..., 0:3], dfeat[..., 4:16]], dim=-1)    # [T, K, 21]
         rows[pos[valid]] = g_row[valid]
         if work is not None:
-            ended = pass_mask & (t_incl < cfg.t_min)
-            ended_before = (torch.cumsum(ended.int(), dim=1) - ended.int()) > 0
-            pairs += int((valid[..., None] & ~done[:, None, :]
-                          & ~ended_before).sum())
-            n_contrib += int(contrib.sum())
+            _count_walk(work, row, valid, pass_mask, t_incl, done, cfg, rects)
+            work["contrib"] += int(contrib.sum())
 
         prefix = prefix + wf.sum(dim=1)
         t_new = torch.where(contrib, t_incl, torch.full_like(t_incl,
                                                              float("inf")))
         t_cur = torch.minimum(t_new.amin(dim=1), t_cur)
         done = done | (pass_mask & (t_incl < cfg.t_min)).any(dim=1)
-    if work is not None:
-        work.update(pairs=pairs, contrib=n_contrib)
     return rows
 
 

@@ -14,6 +14,8 @@ from gi_gs_tpu_torch.ops.rasterize.preprocess import preprocess
 from gi_gs_tpu_torch.scene.cameras import make_camera
 from gi_gs_tpu_torch.utils.math_utils import build_covariance_3d
 
+from cull_rows import cull_rows
+
 pytestmark = pytest.mark.cuda
 
 
@@ -152,6 +154,153 @@ def test_composite_bwd_matches_plain(dev):
     for got, want in ((k, p), (red(k), red(p))):
         scale = float(want.abs().amax(dim=0).max()) + 1e-3
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5 * scale)
+
+
+def _composite_case(dev, cfg, w, h, seed, n=4000, op_lo=0.05):
+    """A random scene binned at `cfg`; returns the composite arguments, the
+    per-launch backward arguments (random cotangents) and the plain
+    forward's outputs."""
+    rng = np.random.RandomState(seed)
+    cam = make_camera(np.eye(3), np.zeros(3), 1.0, 0.7, w, h, device=dev)
+    z = rng.uniform(1, 5, (n, 1))
+    xyz = np.concatenate([rng.uniform(-0.45, 0.45, (n, 2)) * z, z], 1)
+    q = rng.normal(size=(n, 4))
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    cov = build_covariance_3d(t(np.exp(rng.uniform(-4, -2.5, (n, 3)))),
+                              t(q / np.linalg.norm(q, axis=1, keepdims=True)))
+    op = t(rng.uniform(op_lo, 0.99, (n, 1)))
+    pre = preprocess(t(xyz), cov, cam.w2c, cam.full_proj, cam.tanfovx,
+                     cam.tanfovy, w, h, cfg, opacity=op)
+    b = binning.bin_and_sort(pre, h, w, cfg)
+    table = torch.cat([pre.means2d, pre.conic, op, t(rng.uniform(
+        -1, 1, (n, 11))), pre.depth[:, None], pre.pos_view], 1).contiguous()
+    grid = cfg.grid(h, w)
+    args = (table, b.ids, b.tile_start, b.tile_count, cfg, grid)
+    pa, pt = composite._composite_fwd_plain(*args)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    g_acc = torch.randn(pa.shape, device=dev, generator=g)
+    g_t = torch.randn(pt.shape, device=dev, generator=g)
+    bargs = (table, b.ids, b.tile_start, b.tile_count, pa[:, :4].contiguous(),
+             pt, g_acc, g_t, cfg, grid, (h, w))
+    return b, args, bargs, pa, pt
+
+
+@pytest.mark.parametrize("case", ["w136", "n_max_mid_batch", "saturated",
+                                  "tile_8x16", "tile_24x40_ragged"])
+def test_composite_subtile_walk_matches_plain(dev, case):
+    """The sub-tile kernels against the plain versions where the walk's
+    edges lie: an image width that is not a multiple of 64 (padded columns
+    past the image); a cap_tile cut of 200 (in the middle of a forward
+    batch of 128 and a backward batch of 64) below the densest tile's
+    count; opaque splats that saturate some sub-tiles of a tile and not
+    others (per-CTA early exit; the backward's saturated CTAs keep joining
+    the cluster barriers); a 128-pixel tile (one CTA, a cluster of one);
+    and a 24x40 tile (six ragged sub-tiles, a cluster of six). Forward
+    rtol 1e-5, atol 1e-5; backward rows and per-Gaussian sums at the JAX
+    tolerance."""
+    kw = dict(cap_instances=1 << 17)
+    w, h, n, op_lo = 200, 120, 4000, 0.05
+    if case == "w136":
+        w = 136
+    elif case == "n_max_mid_batch":
+        kw.update(cap_tile=200, chunk=8)
+    elif case == "saturated":
+        n, op_lo = 12000, 0.9
+    elif case == "tile_8x16":
+        kw.update(tile_h=8, tile_w=16, cap_tile=1024)
+    else:
+        kw.update(tile_h=24, tile_w=40)
+    cfg = RasterConfig(**kw)
+    b, args, bargs, pa, pt = _composite_case(dev, cfg, w, h, 7, n, op_lo)
+    if case == "n_max_mid_batch":
+        assert int(b.max_tile_count) > 200
+    if case == "saturated":
+        # per 16x16 sub-tile of each 16x64 tile: every pixel saturated?
+        sat = (pa[:, 3] > 0.999).reshape(-1, 16, 4, 16).all(dim=3).all(dim=1)
+        assert bool((sat.any(dim=1) & ~sat.all(dim=1)).any())
+    ka, kt = composite.composite_fwd(*args)
+    torch.testing.assert_close(ka, pa, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(kt, pt, rtol=1e-5, atol=1e-6)
+    before = ck.launches["composite_bwd"]
+    k = composite.composite_bwd(*bargs)
+    assert ck.launches["composite_bwd"] == before + 1
+    p = composite._composite_bwd_plain(*bargs)
+    red = lambda r: composite.reduce_sorted_instance_grads(r, b.inv_perm,
+                                                           b.offsets)
+    for got, want in ((k, p), (red(k), red(p))):
+        scale = float(want.abs().amax(dim=0).max()) + 1e-3
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5 * scale)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_composite_grazing_rows_match_plain(dev, seed):
+    """The kernels' own cull (`subtile_keep` and the per-warp row skip of
+    composite_walk.cuh) where its slack is tight: each 16x64 tile of a
+    136x32 image (its last tile half past the image) lists 384 rows whose
+    exact alpha_min extent grazes an edge pixel of one of its sub-tiles to
+    within 0.05 px, with opacities 0.99, at and next to 1/255 and 0, thin
+    and degenerate conics (cull_rows.py). A dropped pair passes with alpha
+    >= 1/255 and would move an accumulator far past the tolerance (each
+    pixel walks about 340 of its tile's 384 rows before it saturates). Chunk 1
+    makes the plain walks sequential, as the kernels are. The backward is
+    compared on the rows the plain backward leaves finite: it multiplies a
+    rejected pair's zero d(alpha) by exp(power), which is NaN for a NaN
+    conic and inf where an indefinite conic's power overflows; the kernel
+    skips rejected pairs, so its rows are all finite. Every such row's
+    feature columns (sums of w x cotangent, which a dropped pair would
+    change by at least T / 255 x its cotangent) are held to the JAX
+    tolerance; so are all 21 columns of the rows with opacity below 0.9.
+    At opacity 0.99 d(alpha) divides the suffix accum - prefix, which
+    cancels near T = 1e-4, by 1 - alpha = 0.01, and the two sums' rounding
+    (the kernel's collapsed gA - S, the plain's per-channel suffix) then
+    differs by up to ~1e-3 of such a row's conic column (seen on a flat
+    conic of opacity 0.99 that covers the whole tile)."""
+    cfg = RasterConfig(cap_instances=1 << 14, cap_tile=512, chunk=1)
+    h, w, n = 32, 136, 384
+    grid = cfg.grid(h, w)
+    T = grid[0] * grid[1]
+    x0, x1, y0, y1, _ = composite.subtile_rects(cfg, grid, "cpu")
+    rects = torch.stack([x0, x1, y0, y1], -1).numpy().astype(np.int64)
+    rng = np.random.RandomState(seed)
+    table = torch.cat([cull_rows(rng, n, rects[t], graze=True)[
+        rng.permutation(n)] for t in range(T)]).to(dev)
+    assert bool(table[:, 2:5].isnan().any())
+    ids = torch.arange(T * n, dtype=torch.int32, device=dev)
+    start = torch.arange(T, dtype=torch.int32, device=dev) * n
+    count = torch.full((T,), n, dtype=torch.int32, device=dev)
+    ka, kt = composite.composite_fwd(table, ids, start, count, cfg, grid)
+    pa, pt = composite._composite_fwd_plain(table, ids, start, count, cfg,
+                                            grid)
+    torch.testing.assert_close(ka, pa, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(kt, pt, rtol=1e-5, atol=1e-6)
+    assert float(pa[:, 3].max()) > 0.5         # rows did blend
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bargs = (table, ids, start, count, pa[:, :4].contiguous(), pt,
+             torch.randn(pa.shape, device=dev, generator=g),
+             torch.randn(pt.shape, device=dev, generator=g), cfg, grid,
+             (h, w))
+    k = composite.composite_bwd(*bargs)
+    p = composite._composite_bwd_plain(*bargs)
+    fin = p.isfinite().all(dim=1)
+    assert float(fin.float().mean()) > 0.8 and bool(k.isfinite().all())
+    low = fin & (table[:, 5] < 0.9)
+    assert float(low.float().mean()) > 0.5
+    for rows, cols in ((fin, slice(6, 21)), (low, slice(0, 21))):
+        want = p[rows][:, cols]
+        scale = float(want.abs().amax(dim=0).max()) + 1e-3
+        torch.testing.assert_close(k[rows][:, cols], want, rtol=2e-4,
+                                   atol=2e-5 * scale)
+
+
+def test_composite_bwd_is_deterministic(dev):
+    """No atomics: two launches on one input give bit-identical rows."""
+    cfg = RasterConfig(cap_instances=1 << 17)
+    _, _, bargs, _, _ = _composite_case(dev, cfg, 200, 120, 11)
+    first = composite.composite_bwd(*bargs)
+    second = composite.composite_bwd(*bargs)
+    assert float(first.abs().max()) > 0
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("with_rgb", [False, True])
