@@ -13,12 +13,14 @@ Phases (any failure exits non-zero):
   4. kernels   each serving kernel, the peak variant composite_fwd_peak,
                and the phase-2 kernels
                gi_march_coherent (SSAO and SSR on the same 800x800
-               G-buffer, default GIParams) and patch_bwd (the three patch
-               levels of the 256 light, random cotangents), against its
-               plain PyTorch version on the card at the shapes the main
-               path gives it, with times and bounds; a kernel's ms is its
-               launches alone (CUDA events around the C launcher,
-               `cuda_kernels.timed`), the plain ms the whole plain function
+               G-buffer, default GIParams; the keys each launch builds are
+               checked bit for bit against the plain centre_offset_table)
+               and patch_bwd (the three patch levels of the 256 light,
+               random cotangents), against its plain PyTorch version on
+               the card at the shapes the main path gives it, with times
+               and bounds; a kernel's ms is its launches alone (CUDA events
+               around the C launcher, `cuda_kernels.timed`), the plain ms
+               the whole plain function
   5. slice     the port's render CLI (`render_cli.main`) over the test
                views with every launch count set to 0 just before; every
                serving kernel must have launched, the coherent march not
@@ -73,7 +75,8 @@ Phases 4 and 8 print, for the compositing kernels, the histogram of
 instances per tile, the pairs the plain walk evaluates beside those left
 after the kernels' sub-tile cull (the plain cull on the card; the bound
 counts these, `bound_ms_unculled` all of them), and each kernel's
-registers, shared memory and resident blocks per SM; phase 8 also checks
+registers, shared memory and resident blocks per SM (phase 4 also for the
+two marches' SSAO and SSR instantiations); phase 8 also checks
 that two composite_bwd launches give bit-identical rows.
 Then the kernel table as one JSON line (eight kernels), the card line, and
 last {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -200,6 +203,15 @@ def composite_work(work: dict, nbytes: float, per_contrib: float = 0.0):
     return (13.0 * culled + per_contrib * contrib,
             dict(pairs=pairs, culled_pairs=culled,
                  bound_ms_unculled=unculled_ms))
+
+
+def march_resources(ss, name, gi, dev) -> dict:
+    """Registers, shared memory and resident blocks per SM of a march
+    kernel's SSAO and SSR instantiations at gi's direction table."""
+    res = {k: ss.kernel_resources(name, gi, dev, with_rgb=k == "ssr")
+           for k in ("ssao", "ssr")}
+    log(f"  {name} resources: {res}")
+    return res
 
 
 def log_resources(composite, name, cfg, dev) -> dict:
@@ -435,19 +447,24 @@ def kernel_phase(torch, dev, cfg, state, cam, light_arrays, spec):
               "gi_gs_tpu/ops/pallas_gi.py:522", max(errs), all(oks),
               "rtol 1e-5, atol 1e-4 (same hits; sums over ~480 directions "
               "in another order)", ms, pms,
-              4 * H * W * (6 + 1) + 4 * H * W * (9 + 4) + 2 * nd * 16, flops,
+              4 * H * W * (4 + 1) + 4 * H * W * (7 + 4) + 2 * nd * 16, flops,
               directions=nd, live_samples=int(flops / 20.0),
-              calls="ssao (no rgb) + ssr (rgb)")
+              calls="ssao (no rgb) + ssr (rgb)",
+              resources=march_resources(ss, "gi_march", gi, dev))
         # -- gi_march_coherent (phase 2's march: SSAO and SSR, default
-        # GIParams) on the same G-buffer; kernel and plain read one table
-        tab = ss.direction_table(gi)[0]
-        tab_t = torch.as_tensor(tab, device=dev)
+        # GIParams) on the same G-buffer. One launch builds the block-centre
+        # keys and marches: its time covers both; the plain version reads
+        # the plain table, which the kernel's keys must equal bit for bit
+        tab_t = torch.as_tensor(ss.direction_table(gi)[0], device=dev)
         keys = ss.centre_offset_table(nv, pos, tab_t, cam.fx, cam.fy, gi)
-        table_ms = cuda_ms(lambda: ss.centre_offset_table(
-            nv, pos, tab_t, cam.fx, cam.fy, gi), 5)
+        kkeys = torch.full_like(keys, -1)
         errs, oks, ms, pms, samples = [], [], 0.0, 0.0, 0
         for r in (None, rgb):
-            ko, kd = ss.gi_march_coherent(nv, pos, r, cam.fx, cam.fy, gi)
+            ko, kd = ss.gi_march_coherent(nv, pos, r, cam.fx, cam.fy, gi,
+                                          keys_out=kkeys)
+            if not torch.equal(kkeys, keys):
+                fail(f"gi_march_coherent: {int((kkeys != keys).sum())} of "
+                     f"{keys.numel()} keys differ from centre_offset_table's")
             work = {}
             po, pd = ss._gi_march_coherent_plain(nv, pos, r, keys, gi,
                                                  work=work)
@@ -461,19 +478,28 @@ def kernel_phase(torch, dev, cfg, state, cam, light_arrays, spec):
             pms += cuda_ms(lambda: ss._gi_march_coherent_plain(
                 nv, pos, r, keys, gi), 1)
             samples += work["samples"]
+        log(f"  gi_march_coherent: its {keys.numel()} keys per launch are "
+            f"bit-equal to centre_offset_table's on the card")
         # per live sample: svz's 5 flops per direction are amortised,
         # j * zs, the multiply-add of spz, two compares with their adds,
-        # and for a hit 4 multiply-adds: about 8
+        # and for a hit 4 multiply-adds: about 8; per key (one per block,
+        # direction and step, built twice: SSAO and SSR): the direction's
+        # rotation (15), j * zsc and the three multiply-adds (7), two
+        # divisions, two multiply-adds and two roundings (8): about 30
         entry("gi_march_coherent", "gi_gs_tpu_torch/csrc/gi_march_coherent.cu",
               "gi_gs_tpu/ops/pallas_gi.py:522 (mode=coherent; body "
-              "pallas_gi.py:260-373)", max(errs), all(oks),
-              "rtol 1e-5, atol 1e-4 (same keys and hits; sums over the "
-              "directions in another order)", ms, pms,
-              4 * H * W * (3 + 1 + 3) * 2 + 4 * H * W * (1 + 3) +
-              2 * (keys.numel() * 4 + nd * 16), 8.0 * samples,
+              "pallas_gi.py:260-373, keys pallas_gi.py:380-431)", max(errs),
+              all(oks),
+              "keys bit-equal to centre_offset_table; occ and dif rtol 1e-5, "
+              "atol 1e-4 (same keys and hits; sums over the directions in "
+              "another order)", ms, pms,
+              4 * H * W * (4 + 1) + 4 * H * W * (7 + 4) + 2 * nd * 16,
+              8.0 * samples + 2 * 30.0 * keys.numel(),
               directions=nd, steps=keys.shape[3], live_samples=samples,
-              keys_shape=list(keys.shape), offset_table_ms=table_ms,
-              calls="ssao (no rgb) + ssr (rgb)")
+              keys_shape=list(keys.shape), keys_per_call=keys.numel(),
+              keys_bit_equal=True, calls="ssao (no rgb) + ssr (rgb), keys "
+              "built in the same launches",
+              resources=march_resources(ss, "gi_march_coherent", gi, dev))
         # -- patch_fwd (every patch level of the prefilter) --------------------
         ops, _ = cm.level_operators(spec, light_arrays)
         err, ms, pms, nbytes, flops, shapes = 0.0, 0.0, 0.0, 0.0, 0.0, []

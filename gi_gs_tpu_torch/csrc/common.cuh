@@ -11,6 +11,31 @@
 // synchronize would not report it.
 #define GIGS_RETURN_LAUNCH_STATUS() return static_cast<int>(cudaGetLastError())
 
+// Makes `device` the calling thread's current device. cudaGetDevice only
+// reads the runtime's per-thread state; cudaSetDevice runs only when the
+// device changes, not on every launch.
+inline cudaError_t gigs_use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess || current == device) return err;
+  return cudaSetDevice(device);
+}
+
+// Runs `set()` (a cudaFuncSetAttribute call on the current device, say)
+// once per device and remembers that it succeeded; `done` is the caller's
+// own bit set.
+template <typename Set>
+inline cudaError_t gigs_once_per_device(int device,
+                                        unsigned long long& done, Set set) {
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if (bit != 0 && (__atomic_load_n(&done, __ATOMIC_ACQUIRE) & bit)) {
+    return cudaSuccess;
+  }
+  const cudaError_t err = set();
+  if (err == cudaSuccess) __atomic_fetch_or(&done, bit, __ATOMIC_RELEASE);
+  return err;
+}
+
 // What the compiler and the occupancy calculator give a kernel at a launch
 // shape: out = [registers per thread, static shared bytes, dynamic shared
 // bytes, threads per block, resident blocks per SM, local (spill) bytes per

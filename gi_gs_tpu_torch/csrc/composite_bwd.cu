@@ -59,8 +59,6 @@
 #include "common.cuh"
 #include "composite_walk.cuh"
 
-#include <atomic>
-
 #include <cooperative_groups.h>
 
 using namespace gigs_walk;
@@ -293,16 +291,12 @@ __global__ void __launch_bounds__(kSubPixels) composite_bwd_kernel(
 // Lets composite_bwd_kernel take sizeof(Smem) of dynamic shared memory on
 // `device`: a driver call, made once per device, not on every launch.
 cudaError_t opt_in_smem(int device) {
-  static std::atomic<unsigned long long> done{0};
-  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
-  if (bit != 0 && (done.load(std::memory_order_acquire) & bit)) {
-    return cudaSuccess;
-  }
-  const cudaError_t err = cudaFuncSetAttribute(
-      composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(sizeof(Smem)));
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
+  static unsigned long long done = 0;
+  return gigs_once_per_device(device, done, [] {
+    return cudaFuncSetAttribute(composite_bwd_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(sizeof(Smem)));
+  });
 }
 
 cudaLaunchAttribute cluster_attr(int n_sub) {

@@ -28,6 +28,16 @@ FIELDS = ("xyz", "features_dc", "features_rest", "opacity", "normal",
           "albedo", "roughness", "metallic", "scaling", "rotation", "alive")
 
 
+def _rounded(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(x) evaluated in f64 and rounded to f32: the same bits on the CPU
+    and the card, and wherever an element sits in PyTorch's CPU vector
+    loop (its f32 `sigmoid` gives an element of a loop's scalar tail other
+    bits). Used for the two activations preprocess reads (opacity and
+    scale), where the first CPU render of a process was seen to move
+    (tools/parity_processes.py, PERF.md)."""
+    return fn(x.double()).float()
+
+
 @dataclasses.dataclass
 class GaussianParams:
     xyz: torch.Tensor
@@ -60,11 +70,11 @@ class GaussianParams:
         return math_utils.normalize(self.rotation)
 
     def get_scaling(self) -> torch.Tensor:
-        return torch.exp(self.scaling)
+        return _rounded(torch.exp, self.scaling)
 
     def get_opacity(self) -> torch.Tensor:
         # Dead (padding) slots must not render: force opacity to 0.
-        return torch.sigmoid(self.opacity) * self.alive[:, None]
+        return _rounded(torch.sigmoid, self.opacity) * self.alive[:, None]
 
     def get_features(self) -> torch.Tensor:
         return torch.cat([self.features_dc, self.features_rest], dim=1)

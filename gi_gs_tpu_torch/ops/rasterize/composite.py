@@ -233,7 +233,13 @@ def _composite_fwd_plain(table, ids, tile_start, tile_count,
             [torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
         contrib = pass_mask & (t_incl >= cfg.t_min) & ~done[:, None, :]
         w = torch.where(contrib, a * t_prev, torch.zeros_like(a))
-        acc = acc + torch.einsum("tkc,tkp->tcp", _features(row), w)
+        # per channel, an ATen sum over the chunk's rows, not a BLAS
+        # product: with einsum here and in the normal rotations, chip_smoke
+        # phase 9's card-vs-CPU normal gradients left their tolerance once
+        # opacity and scale were rounded through f64 (PERF.md section 7)
+        f = _features(row)                                 # [T, K, 16]
+        acc = acc + torch.stack([(f[:, :, ch, None] * w).sum(1)
+                                 for ch in range(NUM_CH)], 1)
         if peak:
             # torch.argmax returns the first index of a tie
             best_k = torch.argmax(w, dim=1)                # [T, P]

@@ -16,6 +16,7 @@ from .composite import _composite_fwd_plain, composite, composite_fwd, \
 from .config import RasterConfig
 from .preprocess import preprocess
 from ...utils import timing
+from ...utils.math_utils import rotate_chw
 
 
 class RasterOutput(NamedTuple):
@@ -160,7 +161,7 @@ def rasterize(means3d: torch.Tensor, cov3d: torch.Tensor,
 
     # View-space normal, normalised in the kernel with no backward path
     # (forward.cu:600-605).
-    n_view = torch.einsum("ij,jhw->ihw", w2c[:3, :3], out_normal)
+    n_view = rotate_chw(w2c[:3, :3], out_normal)
     n_norm = torch.linalg.norm(n_view, dim=0, keepdim=True)
     n_view = (n_view / torch.clamp(n_norm, min=1e-12)).detach()
 

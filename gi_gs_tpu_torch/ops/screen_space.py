@@ -11,7 +11,9 @@ z-buffer: occ = sum_d w_d * hit_d and dif = sum_d w_d * rgb(hit_d).
                           test stays per pixel (pallas_gi._kernel_coherent);
   "pallas_exact", "jnp"   exact march (`gi_march`).
 Each march runs its CUDA kernel on CUDA tensors (`csrc/gi_march.cu`,
-`csrc/gi_march_coherent.cu`) and its plain version on CPU tensors. March
+`csrc/gi_march_coherent.cu`, sharing `csrc/march_walk.cuh`) and its plain
+version on CPU tensors; the coherent kernel builds its block-centre offsets
+itself, the plain version takes them from `centre_offset_table`. March
 semantics (pallas_gi.py:38-46): j in [start, step); an out-of-bounds sample
 kills the ray before the depth test; rounding is half away from zero;
 +1e-7 on the projected z; a hit (z - thick <= sample <= z + bias)
@@ -32,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.device import device_constant
+from ..utils.math_utils import rotate_chw
 from . import cuda_kernels as ck
 
 
@@ -104,7 +107,7 @@ def depth_to_normal(depth: torch.Tensor, w2c: torch.Tensor, fx: float,
               unit(cross(e_c, e_b)) + unit(cross(e_b, e_a)) +
               unit(cross(e_ac, e_bd)) + unit(cross(e_bcad, e_cdab))) / 6.0
 
-    n_world = torch.einsum("ji,jhw->ihw", w2c[:3, :3], normal)
+    n_world = rotate_chw(w2c[:3, :3].T, normal)
     return n_world * ok[None], pos
 
 
@@ -163,8 +166,17 @@ def _direction_rows(p: GIParams) -> np.ndarray:
     return direction_table(p)[0]
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """f32 square root rounded to nearest on every device, as the kernels'
+    `sqrtf`: PyTorch's vectorised f32 `sqrt` on the CPU is off by an ulp
+    on ~0.7% of inputs (the card's is exact), and one ulp of a normal can
+    flip a ray. The f64 root rounded to f32 is the correctly rounded f32
+    root (sqrt's double rounding is innocuous)."""
+    return torch.sqrt(x.double()).float()
+
+
 def _unit3(v: torch.Tensor) -> torch.Tensor:
-    n = torch.sqrt((v * v).sum(0, keepdim=True))
+    n = _sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])[None]
     return v / torch.clamp(n, min=1e-20)
 
 
@@ -184,6 +196,14 @@ def _round_half_away(x: torch.Tensor) -> torch.Tensor:
     return torch.trunc(x + torch.where(x >= 0, 0.5, -0.5))
 
 
+def _z_scale(z: torch.Tensor, p: GIParams) -> torch.Tensor:
+    """(1 + z / 100)^2 * radius / step, with z / 100 an f32 division on
+    both devices as the kernels compute it: PyTorch divides a CUDA tensor
+    by a Python number as a multiplication by its reciprocal, which moves
+    a sample by an ulp now and then and flips its ray."""
+    return (1.0 + z / torch.full_like(z, 100.0)) ** 2 * (p.radius / p.step)
+
+
 def _march_plain(pos, sample_vec, value_img, depth_img, fx, fy,
                  p: GIParams, work: Optional[dict] = None):
     """Port of the jnp oracle `_march` (screen_space.py:171-212) for one
@@ -193,7 +213,7 @@ def _march_plain(pos, sample_vec, value_img, depth_img, fx, fy,
     H, W = depth_img.shape
     dev = pos.device
     cx, cy = W / 2.0, H / 2.0
-    z_scale = (1.0 + pos[2] / 100.0) ** 2 * (p.radius / p.step)
+    z_scale = _z_scale(pos[2], p)
     B = sample_vec.shape[0]
     C = 0 if value_img is None else value_img.shape[0]
     hit = torch.zeros((B, H, W), dtype=torch.bool, device=dev)
@@ -299,9 +319,16 @@ def centre_offset_table(normal_view: torch.Tensor, pos: torch.Tensor,
     multiples, as on the TPU: a block whose centre lies in the padding
     (the last column block when W is not a multiple of 128) gets the
     offsets of a zero normal at the origin, whatever its real pixels
-    hold."""
+    hold. The centre's z / 100 is z * f32(0.01), as XLA computes it and
+    as PyTorch divides by a Python number on the card, so the CPU and the
+    card give the same keys. With start >= step the march takes no step:
+    the table is JAX's unread zero table [nby, nbx, nd, 1]."""
     h, w = pos.shape[1:]
     nby, nbx = -(-h // BH), -(-w // BW)
+    dev = pos.device
+    if p.start >= p.step:
+        return torch.zeros((nby, nbx, dirs.shape[0], 1), dtype=torch.int32,
+                           device=dev)
     ci, cj = BH // 2, BW // 2
     pad = (0, nbx * BW - w, 0, nby * BH - h)
     nc = F.pad(normal_view, pad)[:, ci::BH, cj::BW]       # [3, nby, nbx]
@@ -310,15 +337,14 @@ def centre_offset_table(normal_view: torch.Tensor, pos: torch.Tensor,
     cx, cy = w / 2.0, h / 2.0
 
     def unit3(x, y, z):
-        n = torch.clamp(torch.sqrt(x * x + y * y + z * z), min=1e-20)
+        n = torch.clamp(_sqrt(x * x + y * y + z * z), min=1e-20)
         return x / n, y / n, z / n
 
     ncx, ncy, ncz = unit3(nc[0], nc[1], nc[2])
     tcx, tcy, tcz = unit3(-ncx * ncy, 1.0 - ncy * ncy, -ncz * ncy)
     bcx, bcy, bcz = unit3(ncy * tcz - ncz * tcy, ncz * tcx - ncx * tcz,
                           ncx * tcy - ncy * tcx)
-    zsc_c = (1.0 + pc[2] / 100.0) ** 2 * (p.radius / p.step)
-    dev = pos.device
+    zsc_c = (1.0 + pc[2] * 0.01) ** 2 * (p.radius / p.step)
     px_c = (torch.arange(nbx, dtype=torch.float32, device=dev) * BW + cj
             )[None, :, None]
     py_c = (torch.arange(nby, dtype=torch.float32, device=dev) * BH + ci
@@ -357,7 +383,7 @@ def _gi_march_coherent_plain(normal_view, pos, rgb, keys, p: GIParams,
     tang, bitan, nrm3 = _tbn(nrm)
     tab = device_constant(_direction_rows, p, device=dev)
     posz = pos[2]
-    zsc = (1.0 + posz / 100.0) ** 2 * (p.radius / p.step)
+    zsc = _z_scale(posz, p)
     ys = torch.arange(H, device=dev)[:, None]
     xs = torch.arange(W, device=dev)[None, :]
     flat_z = posz.reshape(-1)
@@ -401,36 +427,62 @@ def _gi_march_coherent_plain(normal_view, pos, rgb, keys, p: GIParams,
 
 def gi_march_coherent(normal_view: torch.Tensor, pos: torch.Tensor,
                       rgb: Optional[torch.Tensor], fx: float, fy: float,
-                      p: GIParams) -> Tuple[torch.Tensor, torch.Tensor]:
+                      p: GIParams, keys_out: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Block-coherent hemisphere march of every pixel (replaces
-    pallas_gi._march_pallas(mode="coherent")). The centre-offset table is
-    built by `centre_offset_table` on the tensors' device, as JAX builds it
-    outside its kernel. Same arguments and outputs as `gi_march`."""
+    pallas_gi._march_pallas(mode="coherent")). Same arguments and outputs
+    as `gi_march`. On CUDA tensors one kernel launch builds the
+    block-centre offsets and marches; `keys_out` (int32, the shape of
+    `centre_offset_table`'s result), if given, receives the keys it built.
+    On CPU tensors the plain versions run."""
     dev = pos.device
     tab = device_constant(_direction_rows, p, device=dev)
-    keys = centre_offset_table(normal_view, pos, tab, fx, fy, p)
     if not pos.is_cuda:
+        keys = centre_offset_table(normal_view, pos, tab, fx, fy, p)
+        if keys_out is not None:
+            keys_out.copy_(keys)
         return _gi_march_coherent_plain(normal_view, pos, rgb, keys, p)
     H, W = pos.shape[1:]
     normal_view = normal_view.contiguous()
     pos = pos.contiguous()
     ck.check(normal_view, "normal_view", torch.float32, (3, H, W), dev)
     ck.check(pos, "pos", torch.float32, (3, H, W), dev)
-    ck.check(keys, "keys", torch.int32, None, dev)
     if rgb is not None:
         rgb = rgb.contiguous()
         ck.check(rgb, "rgb", torch.float32, (3, H, W), dev)
+    if keys_out is not None:
+        ck.check(keys_out, "keys_out", torch.int32,
+                 (-(-H // BH), -(-W // BW), tab.shape[0],
+                  max(p.step - p.start, 1)), dev)
+        if p.start >= p.step:
+            keys_out.zero_()
     occ = torch.empty((H, W), dtype=torch.float32, device=dev)
     dif = (torch.empty((3, H, W), dtype=torch.float32, device=dev)
            if rgb is not None else torch.zeros((3, H, W), device=dev))
     ck.launch("gi_march_coherent", "gigs_gi_march_coherent", dev,
               normal_view.data_ptr(), pos.data_ptr(),
               rgb.data_ptr() if rgb is not None else None, tab.data_ptr(),
-              keys.data_ptr(), tab.shape[0], keys.shape[3], H, W,
+              tab.shape[0], H, W, float(np.float32(fx)),
+              float(np.float32(fy)), W / 2.0, H / 2.0,
               float(np.float32(p.radius / p.step)), p.bias, p.thick,
               p.start, p.step, occ.data_ptr(),
-              dif.data_ptr() if rgb is not None else None)
+              dif.data_ptr() if rgb is not None else None,
+              keys_out.data_ptr() if keys_out is not None else None)
     return occ, dif
+
+
+def kernel_resources(kernel: str, p: GIParams, device: torch.device,
+                     with_rgb: bool = True) -> dict:
+    """Registers, shared memory and resident blocks per SM of the march
+    kernel `kernel` ("gi_march" or "gi_march_coherent"; the SSR
+    instantiation unless `with_rgb` is False) at p's direction table
+    (`cuda_kernels.resources`; the coherent kernel also reports its
+    cluster size and the clusters the card holds at once)."""
+    nd = direction_table(p)[0].shape[0]
+    if kernel == "gi_march_coherent":
+        return ck.resources("gigs_gi_march_coherent_resources", device,
+                            int(with_rgb), nd, max(p.step - p.start, 0))
+    return ck.resources("gigs_gi_march_resources", device, int(with_rgb), nd)
 
 
 def march(normal_view, pos, rgb, fx, fy, p: GIParams):

@@ -20,6 +20,7 @@ from .ops.screen_space import GIParams
 from .scene.cameras import Camera
 from .utils import image_utils, timing
 from .utils.device import resolve_device
+from .utils.math_utils import rotate_chw
 
 
 def _norm_where_nonzero(v: torch.Tensor) -> torch.Tensor:
@@ -108,8 +109,7 @@ def render(camera: Camera, pc: GaussianParams, bg_color: torch.Tensor,
         normal_map = image_utils.median_blur_3x3(
             _norm_where_nonzero(normal_map))
         # View-space (negated) normal map, the fork's "normal_map" key.
-        normals_view = -torch.einsum("ij,jhw->ihw", camera.w2c[:3, :3],
-                                     normal_map)
+        normals_view = -rotate_chw(camera.w2c[:3, :3], normal_map)
         out_normal_view = image_utils.median_blur_3x3(
             _norm_where_nonzero(out.normal_view))
 

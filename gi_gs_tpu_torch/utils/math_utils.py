@@ -33,6 +33,16 @@ def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12
     return v * torch.rsqrt(torch.maximum(n2, torch.full_like(n2, eps * eps)))
 
 
+def rotate_chw(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """M [3, 3] applied to every pixel of v [3, H, W]:
+    (M[i, 0] v0 + M[i, 1] v1) + M[i, 2] v2, one elementwise op at a time,
+    so the CPU and the card round every step alike; a BLAS product
+    (einsum) rounds as its library's kernel goes (fused multiply-adds,
+    blocking) and so differs between the devices."""
+    return torch.stack([M[i, 0] * v[0] + M[i, 1] * v[1] + M[i, 2] * v[2]
+                        for i in range(3)])
+
+
 def build_covariance_3d(scaling: torch.Tensor, rotation_raw: torch.Tensor,
                         scale_modifier: float = 1.0) -> torch.Tensor:
     """Upper-triangular (xx, xy, xz, yy, yz, zz) of R diag(s^2) R^T with R

@@ -1,5 +1,6 @@
 """The eight CUDA kernels against their plain PyTorch versions on the card
-(csrc/*.cu, built at first use). Marked `cuda`: they skip without a GPU.
+(csrc/*.cu, built at first use), the coherent march's keys against the
+plain offset table included. Marked `cuda`: they skip without a GPU.
 On a machine with one (without JAX, so skip the tests' conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py"""
 import numpy as np
@@ -15,6 +16,7 @@ from gi_gs_tpu_torch.scene.cameras import make_camera
 from gi_gs_tpu_torch.utils.math_utils import build_covariance_3d
 
 from cull_rows import cull_rows
+from march_scenes import degenerate_centres, smooth_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -303,23 +305,34 @@ def test_composite_bwd_is_deterministic(dev):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("with_rgb", [False, True])
-def test_gi_march_matches_plain(dev, with_rgb):
-    h, w = 60, 90
-    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
-    z = 2.5 + 0.4 * np.sin(xs / 11) + 0.3 * np.cos(ys / 7)
-    z[:, w // 2:] += 0.8
-    fx = float(np.float32(0.9 * w))
-    pos = torch.tensor(np.stack([(xs - w / 2) / fx * z, (ys - h / 2) / fx * z,
-                                 z]), dtype=torch.float32, device=dev)
-    g = torch.Generator(device=dev).manual_seed(0)
-    nrm = torch.randn(3, h, w, device=dev, generator=g)
-    nrm[2] -= 1.5
+def _march_inputs(dev, h, w, with_rgb, seed=0):
+    """A smooth G-buffer with a hard edge (march_scenes.smooth_scene) on
+    the card, normals of random length, and random RGB for SSR."""
+    n, pos, fx, _ = smooth_scene(h, w, seed)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nrm = t(n) * (0.5 + torch.rand(1, h, w, device=dev, generator=g))
     rgb = torch.rand(3, h, w, device=dev, generator=g) if with_rgb else None
+    return nrm, t(pos), rgb, fx
+
+
+MARCH_SHAPES = [pytest.param(60, 90, id="60x90"),
+                pytest.param(800, 800, id="800x800")]
+
+
+@pytest.mark.parametrize("h,w", MARCH_SHAPES)
+@pytest.mark.parametrize("with_rgb", [False, True])
+def test_gi_march_matches_plain(dev, with_rgb, h, w):
+    """The exact march's lock-step walk against the plain march: same hits,
+    the sums over the directions in another order (rtol 1e-5, atol 1e-4);
+    one launch per call."""
+    nrm, pos, rgb, fx = _march_inputs(dev, h, w, with_rgb)
     p = ss.GIParams()
+    before = ck.launches["gi_march"]
     ko, kd = ss.gi_march(nrm, pos, rgb, fx, fx, p)
+    assert ck.launches["gi_march"] == before + 1
     po, pd = ss._gi_march_plain(nrm, pos, rgb, fx, fx, p)
-    # same hits; the sums run in another order
+    assert float(po.max()) > 0
     torch.testing.assert_close(ko, po, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(kd, pd, rtol=1e-5, atol=1e-4)
 
@@ -336,37 +349,87 @@ def test_patch_matches_plain(dev, R, rough):
     torch.testing.assert_close(k, p, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("h,w", [pytest.param(48, 200, id="48x200"),
+                                 pytest.param(800, 800, id="800x800")])
 @pytest.mark.parametrize("with_rgb", [False, True])
-def test_gi_march_coherent_matches_plain(dev, with_rgb):
-    """One full 128-column block and a partial one whose centre lies in
-    the padding. The offset table built on the card equals the one built
-    on the CPU (integer keys, no mismatch allowed); the kernel matches the
-    plain coherent march on the same keys (same hits, sums over the
-    directions in another order: rtol 1e-5, atol 1e-4)."""
-    h, w = 48, 200
-    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
-    z = 2.5 + 0.4 * np.sin(xs / 11) + 0.3 * np.cos(ys / 7)
-    z[:, w // 2:] += 0.8
-    fx = float(np.float32(0.9 * w))
-    pos = torch.tensor(np.stack([(xs - w / 2) / fx * z, (ys - h / 2) / fx * z,
-                                 z]), dtype=torch.float32, device=dev)
-    g = torch.Generator(device=dev).manual_seed(0)
-    nrm = torch.randn(3, h, w, device=dev, generator=g)
-    nrm[2] -= 1.5
-    rgb = torch.rand(3, h, w, device=dev, generator=g) if with_rgb else None
+def test_gi_march_coherent_matches_plain(dev, with_rgb, h, w):
+    """One launch builds the block-centre keys and marches. At 48x200 (one
+    full 128-column block and a partial one whose centre lies in the
+    padding) and 800x800: the keys the kernel built equal the plain table
+    on the card and on the CPU (integer keys, no mismatch allowed); the
+    kernel matches the plain coherent march on those keys (same hits, sums
+    over the directions in another order: rtol 1e-5, atol 1e-4)."""
+    nrm, pos, rgb, fx = _march_inputs(dev, h, w, with_rgb)
     p = ss.GIParams()
-    tab = ss.direction_table(p)[0]
-    keys = ss.centre_offset_table(nrm, pos, torch.as_tensor(tab, device=dev),
-                                  fx, fx, p)
-    keys_cpu = ss.centre_offset_table(nrm.cpu(), pos.cpu(),
-                                      torch.as_tensor(tab), fx, fx, p)
-    assert torch.equal(keys.cpu(), keys_cpu)
+    tab = torch.as_tensor(ss.direction_table(p)[0], device=dev)
+    keys = ss.centre_offset_table(nrm, pos, tab, fx, fx, p)
+    got = torch.full_like(keys, -1)
     before = ck.launches["gi_march_coherent"]
-    ko, kd = ss.gi_march_coherent(nrm, pos, rgb, fx, fx, p)
+    ko, kd = ss.gi_march_coherent(nrm, pos, rgb, fx, fx, p, keys_out=got)
     assert ck.launches["gi_march_coherent"] == before + 1
+    assert torch.equal(got, keys)
+    assert torch.equal(keys.cpu(), ss.centre_offset_table(
+        nrm.cpu(), pos.cpu(), tab.cpu(), fx, fx, p))
     po, pd = ss._gi_march_coherent_plain(nrm, pos, rgb, keys, p)
+    assert float(po.max()) > 0
     torch.testing.assert_close(ko, po, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(kd, pd, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("gi", [{}, dict(delta=0.25, step=4, start=2)],
+                         ids=["defaults", "small"])
+def test_gi_march_coherent_keys_at_degenerate_centres(dev, gi):
+    """The kernel's keys equal the plain table's (on the card and on the
+    CPU) where the table degenerates (march_scenes.degenerate_centres):
+    normals at +-up and of length 0, a centre at z = 1e-6 whose offsets
+    are clipped to +-2047, and a last column block whose centre lies in
+    the zero padding (W = 272)."""
+    n, pos, fx, _ = degenerate_centres(48, 272, seed=3)
+    nrm, pos = (torch.as_tensor(a, device=dev) for a in (n, pos))
+    p = ss.GIParams(**gi)
+    tab = torch.as_tensor(ss.direction_table(p)[0], device=dev)
+    keys = ss.centre_offset_table(nrm, pos, tab, fx, fx, p)
+    dy, dx = keys // 4096 - 2048, keys % 4096 - 2048
+    assert bool((torch.maximum(dx.abs(), dy.abs())[1, 1] == 2047).any())
+    got = torch.full_like(keys, -1)
+    ss.gi_march_coherent(nrm, pos, None, fx, fx, p, keys_out=got)
+    assert torch.equal(got, keys)
+    assert torch.equal(keys.cpu(), ss.centre_offset_table(
+        nrm.cpu(), pos.cpu(), tab.cpu(), fx, fx, p))
+
+
+@pytest.mark.parametrize("kernel", ["gi_march", "gi_march_coherent"])
+def test_marches_are_deterministic(dev, kernel):
+    """No atomics and a fixed sum order: two launches on one input give
+    bit-identical occlusion and indirect sums."""
+    nrm, pos, rgb, fx = _march_inputs(dev, 160, 300, True, seed=5)
+    march = getattr(ss, kernel)
+    first = march(nrm, pos, rgb, fx, fx, ss.GIParams())
+    second = march(nrm, pos, rgb, fx, fx, ss.GIParams())
+    assert float(first[0].max()) > 0
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("start", [4, 6])
+@pytest.mark.parametrize("kernel", ["gi_march", "gi_march_coherent"])
+def test_marches_take_no_step_from_start_at_step(dev, kernel, start):
+    """start >= step: no sample, so occlusion and indirect sums are 0 (JAX:
+    SSAO 1, SSR 0), and the coherent kernel's keys are JAX's zero table
+    [nby, nbx, nd, 1]."""
+    nrm, pos, rgb, fx = _march_inputs(dev, 40, 150, True)
+    p = ss.GIParams(delta=0.25, step=4, start=start)
+    kw = {}
+    if kernel == "gi_march_coherent":
+        tab = torch.as_tensor(ss.direction_table(p)[0], device=dev)
+        keys = ss.centre_offset_table(nrm, pos, tab, fx, fx, p)
+        assert keys.shape == (3, 2, tab.shape[0], 1)
+        kw["keys_out"] = torch.full_like(keys, -1)
+    occ, dif = getattr(ss, kernel)(nrm, pos, rgb, fx, fx, p, **kw)
+    assert not occ.any() and not dif.any()
+    if kw:
+        assert not kw["keys_out"].any()
+    assert float(ss.ssao(nrm, pos, fx, fx, p).min()) == 1.0
 
 
 @pytest.mark.parametrize("R,rough", [(64, 0.36), (128, 0.22)])

@@ -133,3 +133,36 @@ def test_render_pbr_view_matches_jax():
         else:
             np.testing.assert_allclose(a, b, atol=1e-4, rtol=0, err_msg=key)
     assert np.isfinite(got["render_rgb"].numpy()).all()
+
+
+@pytest.mark.parametrize("field", ["opacity", "scaling"])
+def test_activations_do_not_depend_on_position(field):
+    """The CPU parity of the serving render (chip_smoke phase 6) failed in
+    a few fresh processes, in the first CPU render, at preprocess
+    (tools/parity_processes.py's stage hashes), which reads the activated
+    opacity and scale. PyTorch's f32 `sigmoid` on the CPU gives an
+    element of its vector loop's scalar tail other bits, and neither f32
+    activation rounds as the card's does. Both now round an f64 value to
+    f32: the same raw values activated whole and as slices of other
+    lengths and offsets agree bit for bit, and match the f64 value rounded
+    once (the card's bits too)."""
+    rng = np.random.RandomState(0)
+    n = 1 << 16
+    fields = {k: np.zeros((n,) + s, np.float32) for k, s in (
+        ("xyz", (3,)), ("features_dc", (1, 3)), ("features_rest", (15, 3)),
+        ("opacity", (1,)), ("normal", (3,)), ("albedo", (3,)),
+        ("roughness", (1,)), ("metallic", (1,)), ("scaling", (3,)),
+        ("rotation", (4,)))}
+    fields[field] = rng.uniform(-8, 8, fields[field].shape).astype(
+        np.float32)
+    fields["alive"] = np.ones(n, bool)
+    get = {"opacity": "get_opacity", "scaling": "get_scaling"}[field]
+    whole = getattr(params_from_numpy(fields, 3, 3, device="cpu"), get)()
+    for length in (4096, 2047, 4095, 100, 17):
+        for off in (0, 1, 3):
+            part = {k: v[off:off + length] for k, v in fields.items()}
+            got = getattr(params_from_numpy(part, 3, 3, device="cpu"), get)()
+            assert torch.equal(got, whole[off:off + length])
+    fn = torch.exp if field == "scaling" else torch.sigmoid
+    assert torch.equal(whole, fn(torch.as_tensor(fields[field]).double())
+                       .float())

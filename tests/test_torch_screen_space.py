@@ -18,6 +18,8 @@ from gi_gs_tpu.ops import screen_space as jss
 
 from gi_gs_tpu_torch.ops import screen_space as tss
 
+from march_scenes import degenerate_centres
+
 torch.set_num_threads(1)
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -148,20 +150,38 @@ def _padded_table_jax(n, pos, dirs, fx, fy, p):
         (hp // 16, wp // 128)))
 
 
-@pytest.mark.parametrize("h,w", [(32, 200), (16, 144), (48, 160)])
-def test_centre_offset_table_matches_pallas_gi(h, w):
+@pytest.mark.parametrize("h,w,case", [
+    pytest.param(32, 200, "scene", id="32-200"),
+    pytest.param(16, 144, "scene", id="16-144"),
+    pytest.param(48, 160, "scene", id="48-160"),
+    pytest.param(48, 272, "degenerate", id="48-272-degenerate"),
+    pytest.param(20, 30, "start_eq_step", id="20-30-start_eq_step"),
+    pytest.param(20, 30, "start_past_step", id="20-30-start_past_step")])
+def test_centre_offset_table_matches_pallas_gi(h, w, case):
     """Integer keys, so equal or not: no mismatch is allowed. When the
     last column block's centre (column 128 k + 64) lies past the image, as
-    at W = 144, 160 and 800 but not 200, it sits in the zero padding (a
-    zero normal at the origin), as on the TPU."""
-    n, pos, fx, fy = _scene(h, w, seed=1)
-    p = tss.GIParams(**SMALL)
+    at W = 144, 160, 272 and 800 but not 200, it sits in the zero padding
+    (a zero normal at the origin), as on the TPU. The degenerate case adds
+    centres with normals at +-up and of length 0 and a centre at z = 1e-6
+    whose offsets are clipped to +-2047 (march_scenes.degenerate_centres);
+    with start >= step both sides give the zero table [nby, nbx, nd, 1]."""
+    gi = dict(SMALL)
+    if case == "degenerate":
+        n, pos, fx, fy = degenerate_centres(h, w, seed=1)
+    else:
+        n, pos, fx, fy = _scene(h, w, seed=1)
+        gi.update({"start_eq_step": dict(start=4),
+                   "start_past_step": dict(start=6)}.get(case, {}))
+    p = tss.GIParams(**gi)
     dirs = tss.direction_table(p)[0]
-    want = _padded_table_jax(n, pos, dirs, fx, fy, jss.GIParams(**SMALL))
+    want = _padded_table_jax(n, pos, dirs, fx, fy, jss.GIParams(**gi))
     got = tss.centre_offset_table(torch.as_tensor(n), torch.as_tensor(pos),
                                   torch.as_tensor(dirs), fx, fy, p)
     assert got.dtype == torch.int32 and got.shape == want.shape
     assert int((got.numpy() != want).sum()) == 0
+    if case.startswith("start"):
+        assert got.shape[3] == 1 and not got.any()
+        return
     # a padded-centre block projects every sample to the image centre:
     # its column offset is the image centre's minus the block centre's,
     # whatever the direction and step
@@ -169,6 +189,40 @@ def test_centre_offset_table_matches_pallas_gi(h, w):
     if centre >= w:
         dx = got.numpy()[:, -1] % 4096 - 2048
         assert (dx == round(w / 2.0) - centre).all()
+    if case == "degenerate":
+        dy, dx = got.numpy() // 4096 - 2048, got.numpy() % 4096 - 2048
+        assert (np.maximum(np.abs(dx), np.abs(dy))[1, 1] == 2047).any()
+
+
+@pytest.mark.parametrize("start", [4, 6], ids=["start_eq_step",
+                                              "start_past_step"])
+@pytest.mark.parametrize("mode", ["coherent", "exact"])
+def test_start_not_below_step_matches_pallas_gi(mode, start):
+    """With start >= step the march takes no step, as in JAX: SSAO is 1 on
+    every pixel and SSR 0, for the port's coherent and exact marches alike
+    (plain versions) against `ssao_pallas` / `ssr_pallas` in interpret
+    mode. The coherent march's zero table [nby, nbx, nd, 1] is JAX's
+    (pallas_gi.py:429-430)."""
+    h, w = 20, 30
+    n, pos, fx, fy = _scene(h, w, seed=1)
+    rgb, albedo, rough, metal, f0 = _ssr_inputs(h, w, seed=2)
+    backend = "pallas" if mode == "coherent" else "pallas_exact"
+    gi = dict(SMALL, start=start)
+    jp = jss.GIParams(**gi, backend=backend)
+    tp = tss.GIParams(**gi, backend=backend)
+    J, T = jnp.asarray, torch.as_tensor
+    ao_j = np.asarray(pallas_gi.ssao_pallas(J(n), J(pos), fx, fy, jp,
+                                            interpret=True, mode=mode))
+    ao_t = tss.ssao(T(n), T(pos), fx, fy, tp).numpy()
+    np.testing.assert_array_equal(ao_t, ao_j)
+    assert float(ao_t.sum()) == h * w
+    ins = (n, pos, rgb, albedo, rough, metal, f0)
+    cj, gj = pallas_gi.ssr_pallas(*map(J, ins), fx, fy, jp, interpret=True,
+                                  mode=mode)
+    ct, gt = tss.ssr(*map(T, ins), fx, fy, tp)
+    np.testing.assert_array_equal(gt.numpy(), np.asarray(gj))
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    assert not ct.numpy().any()
 
 
 @pytest.mark.parametrize("h,w", [(32, 200), (16, 144)])
@@ -242,3 +296,52 @@ def test_ssr_gradient_is_albedo_only(backend):
     for i in (0, 1, 2, 4, 5, 6):
         assert not np.asarray(jgrads[i]).any()
         assert leaves[i].grad is None or not leaves[i].grad.any(), i
+
+
+def test_plain_march_sqrt_is_correctly_rounded():
+    """The plain marches' f32 square root (`_sqrt`, in `_unit3` and the
+    offset table) is the correctly rounded one, as the kernels' `sqrtf`
+    and the card's `torch.sqrt`: PyTorch's vectorised f32 `sqrt` on the
+    CPU is off by an ulp on ~0.7% of inputs, enough to move a sample to
+    the next pixel and flip a ray, so the CPU and the card built different
+    keys from one G-buffer at 800x800. numpy's f32 sqrt is IEEE."""
+    rng = np.random.RandomState(0)
+    x = np.exp(rng.uniform(np.log(1e-30), np.log(1e30), 1 << 20)
+               ).astype(np.float32)
+    got = tss._sqrt(torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  np.sqrt(x).view(np.int32))
+    v = rng.randn(3, 64, 64).astype(np.float32) * 3
+    f = np.float32
+    n = np.maximum(np.sqrt((v[0] * v[0] + v[1] * v[1]) + v[2] * v[2]),
+                   f(1e-20))
+    np.testing.assert_array_equal(tss._unit3(torch.as_tensor(v)).numpy(),
+                                  v / n[None])
+
+
+def test_depth_normal_rotation_is_a_fixed_order_sum():
+    """depth_to_normal rotates its normals to world as (M[i, 0] n0 +
+    M[i, 1] n1) + M[i, 2] n2, one rounding per elementwise op, so the CPU
+    and the card give the same bits. A BLAS einsum rounds as its library
+    goes (fused multiply-adds on the CPU): with it, chip_smoke's card-vs-CPU
+    normal gradients (phase 9) left their tolerance."""
+    rng = np.random.RandomState(3)
+    depth = torch.as_tensor(rng.uniform(1.0, 3.0, (24, 32)).astype(
+        np.float32))
+    q = rng.normal(size=4)
+    w, x, y, z = q / np.linalg.norm(q)
+    w2c = np.eye(4, dtype=np.float32)
+    w2c[:3, :3] = [[1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                    2 * (x * z + w * y)],
+                   [2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                    2 * (y * z - w * x)],
+                   [2 * (x * z - w * y), 2 * (y * z + w * x),
+                    1 - 2 * (x * x + y * y)]]
+    w2c = torch.as_tensor(w2c)
+    n_cam, _ = tss.depth_to_normal(depth, torch.eye(4), 40.0, 40.0)
+    got, _ = tss.depth_to_normal(depth, w2c, 40.0, 40.0)
+    m = w2c[:3, :3].T
+    want = torch.stack([m[i, 0] * n_cam[0] + m[i, 1] * n_cam[1] +
+                        m[i, 2] * n_cam[2] for i in range(3)])
+    assert float(n_cam.abs().max()) > 0.5
+    assert torch.equal(got, want)
