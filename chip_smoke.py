@@ -16,11 +16,13 @@ Phases (any failure exits non-zero):
                G-buffer, default GIParams; the keys each launch builds are
                checked bit for bit against the plain centre_offset_table)
                and patch_bwd (the three patch levels of the 256 light,
-               random cotangents), against its plain PyTorch version on
-               the card at the shapes the main path gives it, with times
-               and bounds; a kernel's ms is its launches alone (CUDA events
-               around the C launcher, `cuda_kernels.timed`), the plain ms
-               the whole plain function
+               random cotangents; bit-equal), against its plain PyTorch
+               version on the card at the shapes the main path gives it,
+               with times and bounds (patch_fwd and patch_bwd per level
+               too, with each level's grid and resources); a kernel's ms is
+               its launches alone (CUDA events around the C launcher,
+               `cuda_kernels.timed`), the plain ms the whole plain
+               function
   5. slice     the port's render CLI (`render_cli.main`) over the test
                views with every launch count set to 0 just before; every
                serving kernel must have launched, the coherent march not
@@ -71,7 +73,9 @@ Phases (any failure exits non-zero):
 Phase 4 also holds composite_fwd_peak against its plain version on view 0
 (accumulator rows bit-equal to composite_fwd's, <= 0.1% of covered pixels
 with another peak), and phase 6 the argmax render on CUDA against CPU.
-Phases 4 and 8 print, for the compositing kernels, the histogram of
+Phase 4 holds expand's tile, depth and gid rows equal to the plain
+version's and prints its resources. Phases 4 and 8 print, for the
+compositing kernels, the histogram of
 instances per tile, the pairs the plain walk evaluates beside those left
 after the kernels' sub-tile cull (the plain cull on the card; the bound
 counts these, `bound_ms_unculled` all of them), and each kernel's
@@ -325,30 +329,26 @@ def kernel_phase(torch, dev, cfg, state, cam, light_arrays, spec):
         k = binning.expand(pre, H, W, rc)
         pl = binning._expand_plain(pre, H, W, rc)
         torch.cuda.synchronize()
-        num_tiles = rc.grid(H, W)[0] * rc.grid(H, W)[1]
-        tile_diff = k[0] != pl[0]
-        sentinel_flip = (k[0] == num_tiles) | (pl[0] == num_tiles)
-        if bool((tile_diff & ~sentinel_flip).any()):
-            fail("expand: a differing tile row is not a cull flip")
+        for key, a, b in zip(("tile", "depth", "gid", "offsets", "total"),
+                             k, pl):
+            if not torch.equal(a, b):
+                fail(f"expand: {key} differs from the plain version in "
+                     f"{int((a != b).sum())} rows")
         finite = torch.isfinite(pl[1])
         err = max(float((k[2] - pl[2]).abs().max()),
                   float((k[1][finite] - pl[1][finite]).abs().max()),
-                  float((torch.isfinite(k[1]) != finite).sum()))
-        n_flip = int(tile_diff.sum())
+                  float((k[0] - pl[0]).abs().max()))
         total = int(pl[4])
-        if n_flip > 1e-4 * total:
-            fail(f"expand: {n_flip} cull flips in {total} instances")
         entry("expand", "gi_gs_tpu_torch/csrc/expand.cu",
               "gi_gs_tpu/ops/rasterize/pallas_expand.py:319", err, err == 0,
-              "exact gid/depth; tile rows may differ only by a cull flip "
-              "(<= 1e-4 of instances)",
+              "tile, depth and gid rows equal to the plain version's",
               kernel_ms(lambda: binning.expand(pre, H, W, rc), "expand", 20),
               cuda_ms(lambda: binning._expand_plain(pre, H, W, rc), 3),
               n * (11 * 4) + (n + 1) * 4 + rc.cap_instances * 12,
               rc.cap_instances * 60.0,
               also_replaces="gi_gs_tpu/ops/rasterize/pallas_expand.py:226 "
                             "(pack_rows, folded into expand)",
-              cull_flip_rows=n_flip, instances=total)
+              instances=total, resources=binning.expand_resources(dev))
         # -- composite_fwd ----------------------------------------------------
         b = binning.bin_and_sort(pre, H, W, rc)
         table = composite.composite_table(
@@ -500,52 +500,56 @@ def kernel_phase(torch, dev, cfg, state, cam, light_arrays, spec):
               keys_bit_equal=True, calls="ssao (no rgb) + ssr (rgb), keys "
               "built in the same launches",
               resources=march_resources(ss, "gi_march_coherent", gi, dev))
-        # -- patch_fwd (every patch level of the prefilter) --------------------
+        # -- patch_fwd and patch_bwd (every patch level of the prefilter;
+        # the transpose on random cotangents), per level and summed
         ops, _ = cm.level_operators(spec, light_arrays)
-        err, ms, pms, nbytes, flops, shapes = 0.0, 0.0, 0.0, 0.0, 0.0, []
-        for lvl, sp, op in zip(cm.mip_chain(state.cubemap), spec, ops):
-            if sp[0] == "dense":
-                continue
-            (src, Wt), h = op, sp[1]
-            R, Pp = lvl.shape[1], 2 * h + 1
-            padded = cm.halo_pad(lvl, src, h).contiguous()
-            ko = cm.patch_fwd(Wt, padded, R, Pp, h)
-            po = cm._patch_fwd_plain(Wt, padded, h)
-            torch.cuda.synchronize()
-            err = max(err, float((ko - po).abs().max()))
-            ms += kernel_ms(lambda: cm.patch_fwd(Wt, padded, R, Pp, h),
-                            "patch_fwd", 10)
-            pms += cuda_ms(lambda: cm._patch_fwd_plain(Wt, padded, h), 1)
-            nbytes += Wt.numel() * 4 + padded.numel() * 4 + 6 * 3 * R * R * 4
-            flops += 6.0 * R * R * Pp * Pp * 3 * 2
-            shapes.append(f"R={R} P={Pp}")
-        entry("patch_fwd", "gi_gs_tpu_torch/csrc/patch_fwd.cu",
-              "gi_gs_tpu/ops/pallas_patch.py:115", err, err <= 1e-5,
-              "1e-5 absolute (same offset order, no FMA)", ms, pms,
-              nbytes, flops, levels=shapes)
-        # -- patch_bwd (the transpose, every patch level, random cotangents)
         gen = torch.Generator(device=dev).manual_seed(5)
-        err, ms, pms, nbytes, flops = 0.0, 0.0, 0.0, 0.0, 0.0
-        for lvl, sp, op in zip(cm.mip_chain(state.cubemap), spec, ops):
-            if sp[0] == "dense":
-                continue
-            (src, Wt), h = op, sp[1]
-            R, Pp = lvl.shape[1], 2 * h + 1
-            g = torch.randn(6, 3, R, R, device=dev, generator=gen)
-            ko = cm.patch_bwd(Wt, g, R, Pp, h)
-            po = cm._patch_bwd_plain(Wt, g, h)
-            torch.cuda.synchronize()
-            err = max(err, float((ko - po).abs().max()))
-            ms += kernel_ms(lambda: cm.patch_bwd(Wt, g, R, Pp, h),
-                            "patch_bwd", 10)
-            pms += cuda_ms(lambda: cm._patch_bwd_plain(Wt, g, h), 1)
-            nbytes += Wt.numel() * 4 + g.numel() * 4 + po.numel() * 4
-            flops += 6.0 * R * R * Pp * Pp * 3 * 2
-        entry("patch_bwd", "gi_gs_tpu_torch/csrc/patch_bwd.cu",
-              "gi_gs_tpu/ops/pallas_patch.py:146 (body pallas_patch.py:61-80)",
-              err, err <= 1e-5,
-              "1e-5 absolute (same products added in the same offset "
-              "order, no FMA)", ms, pms, nbytes, flops, levels=shapes)
+        for name, replaces, tol in (
+                ("patch_fwd", "gi_gs_tpu/ops/pallas_patch.py:115",
+                 "1e-5 absolute (same offset order, no FMA)"),
+                ("patch_bwd", "gi_gs_tpu/ops/pallas_patch.py:146 (body "
+                 "pallas_patch.py:61-80)", "bit-equal (same products added "
+                 "in the same offset order, no FMA)")):
+            err, levels = 0.0, []
+            for lvl, sp, op in zip(cm.mip_chain(state.cubemap), spec, ops):
+                if sp[0] == "dense":
+                    continue
+                (src, Wt), h = op, sp[1]
+                R, Pp = lvl.shape[1], 2 * h + 1
+                if name == "patch_fwd":
+                    x = cm.halo_pad(lvl, src, h).contiguous()
+                    run = lambda: cm.patch_fwd(Wt, x, R, Pp, h)
+                    plain = lambda: cm._patch_fwd_plain(Wt, x, h)
+                    out_numel = 6 * 3 * R * R
+                else:
+                    x = torch.randn(6, 3, R, R, device=dev, generator=gen)
+                    run = lambda: cm.patch_bwd(Wt, x, R, Pp, h)
+                    plain = lambda: cm._patch_bwd_plain(Wt, x, h)
+                    out_numel = 6 * 3 * (R + 2 * h) ** 2
+                ko, po = run(), plain()
+                torch.cuda.synchronize()
+                lvl_err = float((ko - po).abs().max())
+                if name == "patch_bwd" and not torch.equal(ko, po):
+                    fail(f"patch_bwd at R={R}: {int((ko != po).sum())} of "
+                         f"{po.numel()} values differ from the plain version")
+                err = max(err, lvl_err)
+                nbytes = (Wt.numel() + x.numel() + out_numel) * 4
+                flops = 6.0 * R * R * Pp * Pp * 3 * 2
+                ms = kernel_ms(run, name, 10)
+                b_ms = bound(nbytes, flops)[0]
+                levels.append(dict(
+                    R=R, P=Pp, h=h, ms=ms, bound_ms=b_ms,
+                    bound_share=b_ms / ms, plain_ms=cuda_ms(plain, 1),
+                    bytes=nbytes, max_abs_err=lvl_err,
+                    **cm.patch_resources(name, R, h, dev)))
+                log(f"  {name} R={R} P={Pp}: {levels[-1]}")
+            entry(name, f"gi_gs_tpu_torch/csrc/{name}.cu", replaces, err,
+                  err <= 1e-5 if name == "patch_fwd" else err == 0, tol,
+                  sum(v["ms"] for v in levels),
+                  sum(v["plain_ms"] for v in levels),
+                  sum(v["bytes"] for v in levels),
+                  sum(6.0 * v["R"] ** 2 * v["P"] ** 2 * 3 * 2 for v in levels),
+                  levels=levels)
     return entries
 
 

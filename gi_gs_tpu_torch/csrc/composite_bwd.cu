@@ -316,10 +316,10 @@ GIGS_API int gigs_composite_bwd(
     const void* g_acc, const void* g_t, int num_tiles, int n_max, int grid_x,
     int tile_w, int tile_h, int img_h, int img_w, float alpha_clamp,
     float alpha_min, float t_min, void* grads, void* stream) {
-  cudaSetDevice(device);
+  cudaError_t err = gigs_use_device(device);
+  if (err == cudaSuccess) err = opt_in_smem(device);
   const Layout L = subtile_layout(tile_w, tile_h);
   const int n_sub = L.nx * L.ny;
-  cudaError_t err = opt_in_smem(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr = cluster_attr(n_sub);
   cudaLaunchConfig_t cfg = {};
@@ -345,10 +345,10 @@ GIGS_API int gigs_composite_bwd(
 // holds at once (cudaOccupancyMaxActiveClusters).
 GIGS_API int gigs_composite_bwd_resources(int device, int tile_w, int tile_h,
                                           int* out) {
-  cudaSetDevice(device);
+  cudaError_t err = gigs_use_device(device);
+  if (err == cudaSuccess) err = opt_in_smem(device);
   const Layout L = subtile_layout(tile_w, tile_h);
   const int n_sub = L.nx * L.ny;
-  cudaError_t err = opt_in_smem(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rc = gigs_kernel_resources(composite_bwd_kernel,
                                        subtile_threads(L), sizeof(Smem), out);

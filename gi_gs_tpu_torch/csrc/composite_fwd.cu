@@ -184,7 +184,8 @@ GIGS_API int gigs_composite_fwd(
     const void* tile_count, int num_tiles, int n_max, int grid_x, int tile_w,
     int tile_h, float alpha_clamp, float alpha_min, float t_min, void* accum,
     void* final_t, void* stream) {
-  cudaSetDevice(device);
+  const cudaError_t err = gigs_use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return launch<false>(table, ids, tile_start, tile_count, num_tiles, n_max,
                        grid_x, tile_w, tile_h, alpha_clamp, alpha_min, t_min,
                        accum, final_t, nullptr, stream);
@@ -197,7 +198,8 @@ GIGS_API int gigs_composite_fwd_peak(
     const void* tile_count, int num_tiles, int n_max, int grid_x, int tile_w,
     int tile_h, float alpha_clamp, float alpha_min, float t_min, void* accum,
     void* final_t, void* peak, void* stream) {
-  cudaSetDevice(device);
+  const cudaError_t err = gigs_use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return launch<true>(table, ids, tile_start, tile_count, num_tiles, n_max,
                       grid_x, tile_w, tile_h, alpha_clamp, alpha_min, t_min,
                       accum, final_t, peak, stream);
@@ -207,7 +209,8 @@ GIGS_API int gigs_composite_fwd_peak(
 // a tile shape (gigs_kernel_resources in common.cuh).
 GIGS_API int gigs_composite_fwd_resources(int device, int peak, int tile_w,
                                           int tile_h, int* out) {
-  cudaSetDevice(device);
+  const cudaError_t err = gigs_use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = subtile_threads(subtile_layout(tile_w, tile_h));
   return peak ? gigs_kernel_resources(composite_fwd_kernel<true>, threads, 0,
                                       out)

@@ -68,21 +68,35 @@ __global__ void __launch_bounds__(kBX * kBY) patch_fwd_kernel(
   o[2 * rr] = a2;
 }
 
+cudaError_t opt_in_smem(int device) {
+  static unsigned long long done = 0;
+  return gigs_opt_in_smem(device, done, patch_fwd_kernel);
+}
+
 }  // namespace
 
 GIGS_API int gigs_patch_fwd(int device, const void* W, const void* pad,
                             void* out, int R, int P, int h, void* stream) {
-  cudaSetDevice(device);
+  cudaError_t err = gigs_use_device(device);
+  if (err == cudaSuccess) err = opt_in_smem(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem =
       static_cast<size_t>(3) * (kBY + 2 * h) * (kBX + 2 * h) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      patch_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 block(kBX, kBY);
   const dim3 grid((R + kBX - 1) / kBX, (R + kBY - 1) / kBY, 6);
   patch_fwd_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(W), static_cast<const float*>(pad),
       static_cast<float*>(out), R, P, h);
   GIGS_RETURN_LAUNCH_STATUS();
+}
+
+// Registers, shared memory and resident blocks per SM at a level's halo h
+// (gigs_kernel_resources in common.cuh).
+GIGS_API int gigs_patch_fwd_resources(int device, int h, int* out) {
+  cudaError_t err = gigs_use_device(device);
+  if (err == cudaSuccess) err = opt_in_smem(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem =
+      static_cast<size_t>(3) * (kBY + 2 * h) * (kBX + 2 * h) * sizeof(float);
+  return gigs_kernel_resources(patch_fwd_kernel, kBX * kBY, smem, out);
 }

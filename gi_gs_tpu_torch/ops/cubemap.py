@@ -332,18 +332,41 @@ def patch_fwd(W: torch.Tensor, padded: torch.Tensor, R: int, P: int,
 def patch_bwd(W: torch.Tensor, g: torch.Tensor, R: int, P: int,
               h: int) -> torch.Tensor:
     """Transpose of `patch_fwd` (replaces pallas_patch.patch_apply_bwd).
-    W [6, P^2, R, R]; g [6, 3, R, R] -> [6, 3, R+2h, R+2h]."""
+    W [6, P^2, R, R]; g [6, 3, R, R] -> [6, 3, R+2h, R+2h]. The kernel
+    copies W and g rows in 16-byte units: R a multiple of 4, both 16-byte
+    aligned (g is copied if it is not)."""
     if not W.is_cuda:
         return _patch_bwd_plain(W, g, h)
     dev = W.device
     E = R + 2 * h
+    if R % 4:
+        raise ValueError(f"patch_bwd: R = {R} is not a multiple of 4")
     g = g.contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()
     ck.check(W, "W", torch.float32, (6, P * P, R, R), dev)
     ck.check(g, "g", torch.float32, (6, 3, R, R), dev)
+    if W.data_ptr() % 16:
+        raise ValueError("patch_bwd: W is not 16-byte aligned")
     out = torch.empty((6, 3, E, E), dtype=torch.float32, device=dev)
     ck.launch("patch_bwd", "gigs_patch_bwd", dev, W.data_ptr(), g.data_ptr(),
               out.data_ptr(), R, P, h)
     return out
+
+
+def patch_resources(kernel: str, R: int, h: int, device: torch.device
+                    ) -> dict:
+    """Registers, shared memory and resident blocks per SM of `kernel`
+    ("patch_fwd" or "patch_bwd") at one level's halo h, and the level's
+    grid of CTAs (`cuda_kernels.resources`; launches nothing)."""
+    P, E = 2 * h + 1, R + 2 * h
+    if kernel == "patch_bwd":     # one padded row per CTA, <= 512 columns
+        res = ck.resources("gigs_patch_bwd_resources", device, R, P)
+        grid = [-(-E // (32 * min(-(-E // 32), 16))), E, 6]
+    else:                         # 32 x 8 output tiles of the level
+        res = ck.resources("gigs_patch_fwd_resources", device, h)
+        grid = [-(-R // 32), -(-R // 8), 6]
+    return dict(res, grid=grid, ctas=grid[0] * grid[1] * grid[2])
 
 
 class _PatchFilter(torch.autograd.Function):

@@ -68,6 +68,9 @@ _SIGNATURES = {
     "gigs_composite_bwd_resources": [_I, _I, _I, _P],
     "gigs_gi_march_resources": [_I, _I, _I, _P],
     "gigs_gi_march_coherent_resources": [_I, _I, _I, _I, _P],
+    "gigs_expand_resources": [_I, _P],
+    "gigs_patch_fwd_resources": [_I, _I, _P],
+    "gigs_patch_bwd_resources": [_I, _I, _I, _P],
 }
 RESOURCE_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
                  "threads", "blocks_per_sm", "local_bytes", "cluster_size",

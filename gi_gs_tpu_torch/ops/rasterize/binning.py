@@ -150,6 +150,12 @@ def expand(pre: Preprocessed, height: int, width: int, cfg: RasterConfig):
     return tile, depth, gid, offsets, offsets[-1]
 
 
+def expand_resources(device: torch.device) -> dict:
+    """Registers, shared memory and resident blocks per SM of the expand
+    kernel (`cuda_kernels.resources`; launches nothing)."""
+    return ck.resources("gigs_expand_resources", device)
+
+
 def sort_key(tile: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
     """int64 (tile << 32) | ordered_bits(depth). ordered_bits is the
     order-preserving f32 -> u32 map (set the sign bit of non-negatives,

@@ -2,6 +2,8 @@
 reference on the CPU, forward and (for phase-2 training) backward. The
 patch filter's plain versions are what CUDA tensors would send to
 csrc/patch_fwd.cu and csrc/patch_bwd.cu."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -175,6 +177,26 @@ def test_patch_bwd_and_filter_gradient_match_jax():
     (out * torch.as_tensor(g)).sum().backward()
     np.testing.assert_allclose(c.grad.numpy(), np.asarray(jg), rtol=1e-5,
                                atol=1e-5)
+
+
+def test_patch_bwd_matches_jax_at_a_clamped_halo():
+    """At R = 16 and roughness 0.36 the halo the NDF asks for (9 texels)
+    is clamped to R // 2 = 8, so P = R + 1 and every padded texel gathers
+    from the whole face: the plain transpose against the Pallas
+    `patch_apply_bwd` in interpret mode (1e-5 absolute, the same products
+    summed in another order)."""
+    R, rough = 16, 0.36
+    theta = math.acos(min(cm.ndf_cutoff(rough, 0.99), 1.0))
+    assert int(math.ceil(theta / (2.0 / R) * 1.6)) + 2 > R // 2
+    h, src_idx, W, cmap, g = _patch_case(R=R, rough=rough)
+    assert h == R // 2
+    P = 2 * h + 1
+    gt = torch.as_tensor(np.ascontiguousarray(g.transpose(0, 3, 1, 2)))
+    want = np.asarray(patch_apply_bwd(W, jnp.asarray(gt.numpy()), R, P, h,
+                                      interpret=True))
+    got = cm.patch_bwd(torch.as_tensor(np.asarray(W)), gt, R, P, h)
+    assert got.shape == want.shape == (6, 3, R + 2 * h, R + 2 * h)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_patch_filter_gradient_survives_a_kernel_forward(monkeypatch):

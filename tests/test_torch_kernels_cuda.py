@@ -11,10 +11,13 @@ from gi_gs_tpu_torch.ops import cubemap as cm
 from gi_gs_tpu_torch.ops import cuda_kernels as ck
 from gi_gs_tpu_torch.ops import screen_space as ss
 from gi_gs_tpu_torch.ops.rasterize import RasterConfig, binning, composite
-from gi_gs_tpu_torch.ops.rasterize.preprocess import preprocess
+from gi_gs_tpu_torch.ops.rasterize.preprocess import (PreFlat,
+                                                      Preprocessed,
+                                                      preprocess)
 from gi_gs_tpu_torch.scene.cameras import make_camera
 from gi_gs_tpu_torch.utils.math_utils import build_covariance_3d
 
+import expand_cases
 from cull_rows import cull_rows
 from march_scenes import degenerate_centres, smooth_scene
 
@@ -73,6 +76,24 @@ def test_expand_matches_plain(dev):
     p = binning._expand_plain(pre, h, w, cfg)
     assert ck.launches["expand"] == before + 1
     for a, b in zip(k[:4], p[:4]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", expand_cases.CASES)
+def test_expand_matches_plain_at_block_edges(dev, case):
+    """The kernel's per-CTA search and shared-memory window at the edges
+    of tests/expand_cases.py (one Gaussian over many 256-slot blocks, every
+    count 0, total == cap, total > cap): every output equal to the plain
+    expansion's."""
+    cols, cap = expand_cases.expand_case(case)
+    pre = expand_cases.preprocessed(
+        cols, Preprocessed, PreFlat, lambda a: torch.as_tensor(a, device=dev))
+    cfg = RasterConfig(cap_instances=cap, tile_h=expand_cases.TILE_H,
+                       tile_w=expand_cases.TILE_W)
+    h, w = expand_cases.HEIGHT, expand_cases.WIDTH
+    k = binning.expand(pre, h, w, cfg)
+    p = binning._expand_plain(pre, h, w, cfg)
+    for a, b in zip(k, p):
         assert torch.equal(a, b)
 
 
@@ -432,10 +453,14 @@ def test_marches_take_no_step_from_start_at_step(dev, kernel, start):
     assert float(ss.ssao(nrm, pos, fx, fx, p).min()) == 1.0
 
 
-@pytest.mark.parametrize("R,rough", [(64, 0.36), (128, 0.22)])
+@pytest.mark.parametrize("R,rough", [(256, 0.08), (128, 0.22), (64, 0.36),
+                                     pytest.param(64, 0.45,
+                                                  id="64-0.45-clamped")])
 def test_patch_bwd_matches_plain(dev, R, rough):
-    """The transpose kernel against `_patch_bwd_plain` (the same products
-    added in the same offset order, no FMA: 1e-6), and the cubemap
+    """The transpose kernel against `_patch_bwd_plain` at the three patch
+    levels of the 256 light and at a halo clamped to R // 2 (P = R + 1):
+    bit-equal (the same products added in the same offset order, no FMA;
+    the zero-filled terms outside the face add +0). And the cubemap
     gradient of the whole filter on the card (forward and backward
     kernels) against autograd of the plain filter (1e-5: the halo
     border's scatter adds in another order)."""
@@ -448,8 +473,9 @@ def test_patch_bwd_matches_plain(dev, R, rough):
     before = ck.launches["patch_bwd"]
     k = cm.patch_bwd(W, cot, R, P, h)
     assert ck.launches["patch_bwd"] == before + 1
-    torch.testing.assert_close(k, cm._patch_bwd_plain(W, cot, h), rtol=1e-6,
-                               atol=1e-6)
+    if rough == 0.45:
+        assert h == R // 2
+    assert torch.equal(k, cm._patch_bwd_plain(W, cot, h))
     cmap = torch.rand(6, R, R, 3, device=dev, generator=g)
     gout = cot.permute(0, 2, 3, 1)
     grads = []

@@ -15,12 +15,18 @@ from gi_gs_tpu.ops.rasterize.binning import _expand_xla
 from gi_gs_tpu.ops.rasterize.binning import bin_and_sort as jax_bin_and_sort
 from gi_gs_tpu.ops.rasterize.composite import _fwd_impl
 from gi_gs_tpu.ops.rasterize.pallas_composite import ROW, composite_fwd_pallas
+from gi_gs_tpu.ops.rasterize.preprocess import PreFlat as JaxPreFlat
+from gi_gs_tpu.ops.rasterize.preprocess import \
+    Preprocessed as JaxPreprocessed
 from gi_gs_tpu.ops.rasterize.preprocess import preprocess as jax_preprocess
 
 from gi_gs_tpu_torch.ops.rasterize import RasterConfig
 from gi_gs_tpu_torch.ops.rasterize import binning, composite, pipeline
-from gi_gs_tpu_torch.ops.rasterize.preprocess import preprocess
+from gi_gs_tpu_torch.ops.rasterize.preprocess import (PreFlat,
+                                                      Preprocessed,
+                                                      preprocess)
 
+import expand_cases
 from utils import random_scene
 
 torch.set_num_threads(1)
@@ -73,6 +79,47 @@ def test_expand_plain_matches_xla(seed):
     np.testing.assert_array_equal(t_tile.numpy(), np.asarray(j_tile))
     np.testing.assert_array_equal(t_gid.numpy(), np.asarray(j_gid))
     np.testing.assert_array_equal(t_depth.numpy(), np.asarray(j_depth))
+
+
+@pytest.mark.parametrize("case", expand_cases.CASES)
+def test_expand_plain_matches_xla_at_block_edges(case):
+    """The cases that probe the expand kernel's 256-slot block windows
+    (tests/expand_cases.py): the plain expansion against JAX's oracle,
+    every output equal."""
+    cols, cap = expand_cases.expand_case(case)
+    jp = expand_cases.preprocessed(cols, JaxPreprocessed, JaxPreFlat,
+                                   jnp.asarray)
+    tp = expand_cases.preprocessed(cols, Preprocessed, PreFlat,
+                                   torch.as_tensor)
+    sizes = dict(SIZES, cap_instances=cap, tile_h=expand_cases.TILE_H,
+                 tile_w=expand_cases.TILE_W)
+    jcfg = JaxRasterConfig(**sizes, use_pallas=False, expand_backend="xla")
+    h, w = expand_cases.HEIGHT, expand_cases.WIDTH
+    j_tile, j_depth, j_gid, j_off, j_total = _expand_xla(jp, h, w, jcfg)
+    t_tile, t_depth, t_gid, t_off, t_total = binning._expand_plain(
+        tp, h, w, RasterConfig(**sizes))
+    assert int(t_total) == int(j_total)
+    np.testing.assert_array_equal(t_off.numpy(), np.asarray(j_off))
+    np.testing.assert_array_equal(t_tile.numpy(), np.asarray(j_tile))
+    np.testing.assert_array_equal(t_gid.numpy(), np.asarray(j_gid))
+    np.testing.assert_array_equal(t_depth.numpy(), np.asarray(j_depth))
+    kept = t_tile < 64 * 64
+    in_range = torch.arange(cap) < int(t_total)
+    # the case reaches what it names: kept and culled instances (only
+    # dummies at count 0), and a tail past the total or a total at / past
+    # the capacity
+    if case == "all_count_zero":
+        assert not kept.any()
+    else:
+        assert 0 < int(kept.sum()) < int(in_range.sum())
+    if case == "total_is_cap":
+        assert int(t_total) == cap
+    elif case == "total_past_cap":
+        assert int(t_total) > cap
+    else:
+        assert int(t_total) < cap
+    if case == "one_spans_many_blocks":
+        assert int((t_gid == 7).sum()) == 3000
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
