@@ -51,7 +51,10 @@ Phases (any failure exits non-zero):
                patch_fwd 3, patch_bwd 3, expand, composite_fwd and
                composite_bwd 1 each, the exact gi_march 0. Per-step and
                per-stage times, peak memory, the cubemap's minimum; then a
-               device profile of 3 phase-2 steps
+               device profile of 3 phase-2 steps, with the device time of
+               the light's gather transposes and their gathers by kernel
+               (index_add_, index_select, cumsum, sort); any autograd index
+               backward (indexing_backward_kernel*) fails the run
  11. phase-2 parity  one phase-2 loss (env-TV included) and every gradient
                (Gaussian fields, ndc, cubemap) on CUDA tensors against CPU
                tensors at 160x48 (one full 128-column march block and a
@@ -70,6 +73,14 @@ Phases (any failure exits non-zero):
                frames renamed as the fork's batch scripts do, `collect_cli`
                over the model directory; every JSON written and finite;
                per-view ms of the albedo eval, LPIPS and relighting
+ 14. colmap   phase 7's scene written as a COLMAP capture (binary
+               sparse/0: its 10 poses, a PINHOLE camera, RGB PNGs, the
+               300k shell points as points3D.bin), loaded by `load_scene`
+               through the native reader (built with g++), its cameras held
+               against the Blender form's and its points against the shell;
+               then the train CLI on it, 6 phase-1 and 6 phase-2 steps
+               (--indirect, light_base_res 256), launch counts set to 0
+               just before: every training kernel must launch
 Phase 4 also holds composite_fwd_peak against its plain version on view 0
 (accumulator rows bit-equal to composite_fwd's, <= 0.1% of covered pixels
 with another peak), and phase 6 the argmax render on CUDA against CPU.
@@ -113,6 +124,8 @@ N_GAUSSIANS = 300_000
 N_TRAIN_VIEWS = 8
 TRAIN_STEPS = 30
 PHASE2_STEPS = 20
+COLMAP_P1_STEPS = 6
+COLMAP_P2_STEPS = 6
 
 
 def fail(msg: str) -> None:
@@ -260,6 +273,109 @@ def write_scene(root: str, rng: np.random.RandomState, n_test: int,
         with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
             json.dump({"camera_angle_x": 0.6911112070083618,
                        "frames": frames}, f)
+
+
+def rotmat2qvec(R: np.ndarray) -> np.ndarray:
+    """(w, x, y, z) with w >= 0 of a rotation matrix: COLMAP's own
+    conversion (the largest eigenvector of the symmetric 4x4 K)."""
+    rxx, ryx, rzx, rxy, ryy, rzy, rxz, ryz, rzz = R.flat
+    K = np.array([
+        [rxx - ryy - rzz, 0, 0, 0],
+        [ryx + rxy, ryy - rxx - rzz, 0, 0],
+        [rzx + rxz, rzy + ryz, rzz - rxx - ryy, 0],
+        [ryz - rzy, rzx - rxz, rxy - ryx, rxx + ryy + rzz]]) / 3.0
+    vals, vecs = np.linalg.eigh(K)
+    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
+    return -q if q[0] < 0 else q
+
+
+def write_colmap_model(sparse: str, cameras, images, xyz: np.ndarray,
+                       rgb: np.ndarray, binary: bool = True) -> None:
+    """A COLMAP model in `sparse` (binary .bin or text .txt files):
+    cameras [(id, model name, width, height, params)], images [(id, qvec,
+    tvec, camera id, name)] with two 2D points each, points3D xyz [N, 3]
+    and rgb [N, 3] in 0..255 with errors i / N and a track of two
+    observations each (written as one block)."""
+    import struct
+    from gi_gs_tpu_torch.scene.colmap import _CAMERA_MODELS
+    model_ids = {m.name: m.id for m in _CAMERA_MODELS.values()}
+    os.makedirs(sparse, exist_ok=True)
+    n = len(xyz)
+    err = np.arange(n) / max(n, 1)
+    if not binary:
+        with open(os.path.join(sparse, "cameras.txt"), "w") as f:
+            f.write("# CAMERA_ID, MODEL, WIDTH, HEIGHT, PARAMS[]\n")
+            for cid, model, w, h, params in cameras:
+                f.write(f"{cid} {model} {w} {h} "
+                        + " ".join(repr(float(p)) for p in params) + "\n")
+        with open(os.path.join(sparse, "images.txt"), "w") as f:
+            f.write("# IMAGE_ID, QW, QX, QY, QZ, TX, TY, TZ, CAMERA_ID, "
+                    "NAME\n")
+            for iid, q, t, cid, name in images:
+                f.write(f"{iid} " + " ".join(repr(float(v)) for v in
+                                             (*q, *t))
+                        + f" {cid} {name}\n1.5 2.5 -1 3.5 4.5 {iid}\n")
+        with open(os.path.join(sparse, "points3D.txt"), "w") as f:
+            f.write("# POINT3D_ID, X, Y, Z, R, G, B, ERROR, TRACK[]\n")
+            for i in range(n):
+                f.write(f"{i + 1} " + " ".join(repr(float(v))
+                                               for v in xyz[i])
+                        + " " + " ".join(str(int(v)) for v in rgb[i])
+                        + f" {float(err[i])!r} 1 {i % 7} 2 {i % 5}\n")
+        return
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(cameras)))
+        for cid, model, w, h, params in cameras:
+            f.write(struct.pack("<iiQQ", cid, model_ids[model], w, h))
+            f.write(struct.pack(f"<{len(params)}d", *params))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(images)))
+        for iid, q, t, cid, name in images:
+            f.write(struct.pack("<i7di", iid, *q, *t, cid))
+            f.write(name.encode() + b"\x00" + struct.pack("<Q", 2))
+            f.write(struct.pack("<ddQddQ", 1.5, 2.5, 2**64 - 1, 3.5, 4.5,
+                                iid))
+    rec = np.zeros(n, np.dtype([("id", "<u8"), ("xyz", "<f8", (3,)),
+                                ("rgb", "u1", (3,)), ("err", "<f8"),
+                                ("track_len", "<u8"), ("track", "<i4", (4,))]))
+    rec["id"] = np.arange(1, n + 1)
+    rec["xyz"], rec["rgb"], rec["err"] = xyz, rgb, err
+    rec["track_len"] = 2
+    rec["track"] = np.arange(n)[:, None] % np.array([7, 11, 5, 13])
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", n))
+        f.write(rec.tobytes())
+
+
+def blender_to_colmap(src: str, dst: str, xyz: np.ndarray, rgb: np.ndarray,
+                      binary: bool = True) -> None:
+    """The COLMAP form of a Blender scene made by `write_scene`: one
+    PINHOLE camera with the scene's camera_angle_x, each frame's pose as a
+    world-to-camera quaternion and translation, its RGB channels as
+    images/{split}_{frame}.png, and the points xyz / rgb (0..255) as
+    points3D."""
+    from gi_gs_tpu_torch.utils.image_io import read_png, write_png
+    os.makedirs(os.path.join(dst, "images"), exist_ok=True)
+    images, size = [], None
+    for split in ("train", "test"):
+        with open(os.path.join(src, f"transforms_{split}.json")) as f:
+            meta = json.load(f)
+        for frame in meta["frames"]:
+            stem = os.path.basename(frame["file_path"])
+            pixels = read_png(os.path.join(src, split, stem + ".png"))
+            size = pixels.shape[:2]
+            name = f"{split}_{stem}.png"
+            write_png(os.path.join(dst, "images", name), pixels[..., :3])
+            c2w = np.array(frame["transform_matrix"])
+            c2w[:3, 1:3] *= -1                    # OpenGL -> COLMAP axes
+            w2c = np.linalg.inv(c2w)
+            images.append((len(images) + 1, rotmat2qvec(w2c[:3, :3]),
+                           w2c[:3, 3], 1, name))
+    h, w = size
+    focal = w / (2 * math.tan(meta["camera_angle_x"] / 2))
+    write_colmap_model(os.path.join(dst, "sparse", "0"),
+                       [(1, "PINHOLE", w, h, [focal, focal, w / 2, h / 2])],
+                       images, xyz, rgb, binary)
 
 
 def gaussian_fields(rng: np.random.RandomState, n: int, cap: int):
@@ -768,6 +884,9 @@ def main() -> None:
     eval_phase(torch, ck, data, model, np.random.RandomState(args.seed + 5),
                args.seed)
 
+    # -- 14. a COLMAP capture: the train CLI through both phases -------------
+    colmap_launches = colmap_phase(torch, dev, ck, work, train_data)
+
     # each kernel's launches from the run of the path it serves: the render
     # CLI for the serving kernels, the phase-1 train CLI for composite_bwd,
     # the phase-2 train CLI for gi_march_coherent and patch_bwd, the argmax
@@ -780,6 +899,7 @@ def main() -> None:
         e["launches_in_training"] = train_launches[e["name"]]
         e["launches_in_phase2"] = p2_launches[e["name"]]
         e["launches_in_argmax_render"] = argmax_launches[e["name"]]
+        e["launches_in_colmap_training"] = colmap_launches[e["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     table = {"kernels": [dict({k: e[k] for k in keys},
@@ -921,8 +1041,8 @@ def profile_steps(torch, dev, res, data, phase2: bool, n: int = 3):
         state, _ = step(state, cam, image, alpha, bg, 1)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=phase2) as prof:
         for _ in range(n):
             state, _ = step(state, cam, image, alpha, bg, 1)
         torch.cuda.synchronize()
@@ -941,6 +1061,58 @@ def profile_steps(torch, dev, res, data, phase2: bool, n: int = 3):
         f"{sum(r[2] for r in rows):.0f} device events per step")
     for key, ms, count in rows[:15]:
         log(f"  {ms:9.3f} ms  x{count:<5.0f} {key[:90]}")
+    if not phase2:
+        return
+    # the light's gather transposes and their gathers, as the profile names
+    # their kernels; autograd's index backward must be gone
+    groups = {cls: [r for r in rows if any(p in r[0] for p in pats)]
+              for cls, pats in TRANSPOSE_KERNELS}
+    log("  gather transposes (ms per step, launches per step): " + ", ".join(
+        f"{cls} {sum(r[1] for r in g):.3f} x{sum(r[2] for r in g):.0f}"
+        for cls, g in groups.items()))
+    for key, ms, count in sorted((r for g in groups.values() for r in g),
+                                 key=lambda r: -r[1]):
+        log(f"    {ms:9.3f} ms  x{count:<5.0f} {key[:100]}")
+    # each transpose site apart: the ops that run them, grouped by their
+    # input shapes (a site's table rows and gathered rows), with the device
+    # time of the kernels each launched
+    log("  transpose sites (op, input shapes, calls per step, device ms per "
+        "step, bytes bound per step):")
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key in TRANSPOSE_OPS and e.device_time_total > 0:
+            b = site_bound_ms(e.key, e.input_shapes)
+            log(f"    {e.key} {e.input_shapes} x{e.count / n:.0f} "
+                f"{e.device_time_total / 1e3 / n:.3f} ms"
+                + ("" if b is None else f", bound {b * e.count / n:.4f} ms"))
+    n_index_bwd = sum(r[2] for r in groups["index backward"])
+    if n_index_bwd:
+        fail(f"{n_index_bwd:.0f} autograd index-backward launches per phase-2 "
+             "step (indexing_backward_kernel*)")
+
+
+# kernel-name patterns of the gather transposes and gathers in a profile
+TRANSPOSE_KERNELS = (
+    ("index backward", ("indexing_backward_kernel",)),
+    ("index_add_", ("indexFunc",)),
+    ("cumsum", ("scan_innermost", "scan_outer", "DeviceScan")),
+    ("sort", ("radixSort", "RadixSort", "sort_kernel", "segmented_sort",
+              "DeviceRadixSort")),
+    ("indexing gathers", ("index_elementwise_kernel", "vectorized_gather")))
+# the ops of the transposes and their gathers (profile_steps, phase 2)
+TRANSPOSE_OPS = ("aten::index_add_", "aten::cumsum", "aten::index_select")
+
+
+def site_bound_ms(key: str, shapes) -> float:
+    """The bytes bound of one call of a transpose op from its input shapes:
+    `index_add_` reads its source rows and their ids once and reads and
+    writes its table once; `cumsum` reads and writes its input once. None
+    for the gathers (their dimension is not in the shapes)."""
+    if key == "aten::index_add_":
+        (t, c), (n,) = shapes[0], shapes[2]
+        return bound(4 * n * c + 8 * n + 8 * t * c, 0)[0]
+    if key == "aten::cumsum":
+        return bound(8 * math.prod(shapes[0]), 0)[0]
+    return None
 
 
 def composite_bwd_phase(torch, dev, res, data):
@@ -1476,6 +1648,102 @@ def eval_phase(torch, ck, data, model, rng, seed):
         fail(f"collect_cli found no psnr_avg: {summary}")
     log(f"[eval] relight metrics {relit}; normal MAE {mae}; collect_cli "
         f"summary {summary}")
+
+
+def colmap_phase(torch, dev, ck, work_dir, train_data):
+    """Phase 7's scene as a COLMAP capture: its 10 poses at 800x800 with a
+    PINHOLE camera of lego's camera_angle_x, its RGB frames as PNGs and its
+    300,000 shell points as a binary sparse/0. `load_scene` must read it
+    through the native reader and give the Blender form's world-view and
+    projection matrices (1e-5) and the shell's points. Then the train CLI
+    trains it COLMAP_P1_STEPS phase-1 steps and COLMAP_P2_STEPS phase-2
+    steps (--indirect, light_base_res 256), launch counts set to 0 just
+    before and read after: every training kernel must launch, the exact
+    march not. Returns the launch counts."""
+    from gi_gs_tpu_torch import native
+    from gi_gs_tpu_torch.cli import train_cli
+    from gi_gs_tpu_torch.scene.dataset import load_scene
+    from gi_gs_tpu_torch.scene.ply import fetch_point_cloud
+    data = os.path.join(work_dir, "colmap_scene")
+    t0 = time.time()
+    shell, colors, _ = fetch_point_cloud(os.path.join(train_data,
+                                                      "points3d.ply"))
+    blender_to_colmap(train_data, data, shell.astype(np.float64),
+                      np.round(colors * 255).astype(np.int64))
+    t_write = time.time() - t0
+    native.reads.clear()
+    t0 = time.time()
+    scene = load_scene(data, images="images", eval_split=True,
+                       resolution=-1, white_background=False,
+                       max_cameras=None)
+    t_load = time.time() - t0
+    if native.get() is None or dict(native.reads) != {"images.bin": 1,
+                                                      "points3D.bin": 1}:
+        fail(f"the COLMAP scene was not read by the native reader "
+             f"(reads {dict(native.reads)})")
+    recs = scene.train_cameras + scene.test_cameras
+    blender = load_scene(train_data, eval_split=True)
+    colmap_recs = {r.name: r for r in recs}
+    worst = 0.0
+    for split, brecs in (("train", blender.train_cameras),
+                         ("test", blender.test_cameras)):
+        for r in brecs:
+            a, b = r.camera(dev), colmap_recs[f"{split}_{r.name}"].camera(dev)
+            worst = max(worst, float((a.w2c - b.w2c).abs().max()),
+                        float((a.full_proj - b.full_proj).abs().max()))
+    if len(recs) != 10 or worst > 1e-5:
+        fail(f"COLMAP cameras: {len(recs)} views, world-view / projection "
+             f"off the Blender form's by {worst}")
+    if not np.array_equal(scene.points, shell):
+        fail("the COLMAP points are not the shell's")
+    log(f"[colmap] phase 7's scene as a binary sparse/0 ({len(recs)} views "
+        f"{recs[0].width}x{recs[0].height}, {len(scene.points)} points) "
+        f"written in {t_write:.1f} s, loaded in {t_load:.1f} s through the "
+        f"native reader ({native.get().__file__}); cameras within {worst:.2e} "
+        f"of the Blender form's, {len(scene.train_cameras)} train / "
+        f"{len(scene.test_cameras)} test views (llffhold 8)")
+    model = os.path.join(work_dir, "colmap_model")
+    last = COLMAP_P1_STEPS + COLMAP_P2_STEPS
+    ck.reset_launches()
+    t0 = time.time()
+    res = train_cli.main([
+        "--source_path", data, "--model_path", model, "--eval",
+        "--iterations", str(last), "--pbr_iteration", str(COLMAP_P1_STEPS),
+        "--indirect", "--light_base_res", str(LIGHT_RES),
+        "--test_iterations", str(last), "--save_iterations", str(last)])
+    wall = time.time() - t0
+    launches = dict(ck.launches)
+    steps = res["steps"]
+    if [st["phase"] for st in steps] != [1] * COLMAP_P1_STEPS + \
+            [2] * COLMAP_P2_STEPS:
+        fail(f"the COLMAP run took phases {[st['phase'] for st in steps]}")
+    if not all(math.isfinite(st["loss"]) for st in steps):
+        fail(f"non-finite COLMAP training loss {[st['loss'] for st in steps]}")
+    ms = [1e3 * st["seconds"] for st in steps]
+    p1, p2 = ms[1:COLMAP_P1_STEPS], ms[COLMAP_P1_STEPS + 1:]
+    log(f"[colmap] train_cli.main, {COLMAP_P1_STEPS} phase-1 + "
+        f"{COLMAP_P2_STEPS} phase-2 steps (--indirect, light_base_res "
+        f"{LIGHT_RES}) in {wall:.1f} s (scene load, init, eval and checkpoint "
+        f"included); launches {launches}")
+    log("  ms per step (device synchronised): " + ", ".join(
+        f"{m:.1f}" for m in ms))
+    log(f"  after each phase's first step: phase 1 mean {np.mean(p1):.2f} "
+        f"ms, phase 2 mean {np.mean(p2):.2f} ms")
+    missing = [k for k in ("expand", "composite_fwd", "composite_bwd",
+                           "gi_march_coherent", "patch_fwd", "patch_bwd")
+               if launches[k] == 0]
+    if missing or launches["gi_march"]:
+        fail(f"the COLMAP training run launched no {missing} or the exact "
+             f"march ({launches})")
+    for name in (f"chkpnt{last}.pt", f"eval_{last}.json"):
+        if not os.path.exists(os.path.join(model, name)):
+            fail(f"COLMAP training did not write {name}")
+    with open(os.path.join(model, f"eval_{last}.json")) as f:
+        metrics = json.load(f)
+    log(f"  eval_{last}.json (PBR view) {metrics}")
+    if not math.isfinite(metrics["psnr"]):
+        fail("non-finite COLMAP eval")
+    return launches
 
 
 def parity_phase(torch, dev, config_mod, render_cli, params_from_numpy, rng):

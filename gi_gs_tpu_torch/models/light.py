@@ -3,7 +3,8 @@ pbr/light.py CubemapLight): the base [6, R, R, 3] cubemap is prefiltered
 into a specular mip stack plus the diffuse irradiance
 (`build_mips_packed`, differentiable: phase-2 training takes its gradient
 through the mip chain and the prefilter), and sampled on the lat-long
-grid for export and the env-TV loss (`make_latlong_sampler`). A new
+grid for export and the env-TV loss (`make_latlong_sampler`, whose
+backward is JAX's static sorted gather and cumsum segments). A new
 environment for relighting comes from an HDRI (`load_hdr`) resampled onto
 the cube (`latlong_to_cubemap`)."""
 from __future__ import annotations
@@ -68,10 +69,13 @@ def envmap_dirs(res: Sequence[int] = (512, 1024), device="cpu"
 
 
 @functools.lru_cache(maxsize=4)
-def _latlong_taps(res_cube: int, h: int, w: int):
-    """numpy (tap texel ids [HW, 4] int64, tap weights [HW, 4] f32) of the
-    seamless bilinear lookup of the lat-long grid in a [6, R, R, 3]
-    cubemap: the taps of JAX's `_latlong_struct` (light.py:93-133)."""
+def _latlong_struct(res_cube: int, h: int, w: int):
+    """Static tap structure (numpy) of the seamless bilinear lookup of the
+    lat-long grid in a [6, R, R, 3] cubemap (JAX light.py:93-133): tap
+    texel ids [HW, 4] int64 and weights [HW, 4] f32, plus the stable
+    sorted-by-texel permutation `order` [4HW] of the flat taps and the
+    segment `bounds` [6R^2 + 1] of each texel in the sorted taps, which
+    make the transpose a gather and a cumsum instead of a scatter."""
     R = res_cube
     gy, gx = np.meshgrid(
         np.linspace(0.0 + 1.0 / h, 1.0 - 1.0 / h, h),
@@ -96,34 +100,74 @@ def _latlong_taps(res_cube: int, h: int, w: int):
         pidx = (vv.astype(np.int64) + 1) * E + uu.astype(np.int64) + 1
         idxs.append(emap[face, pidx])
         ws.append(wgt.astype(np.float32))
-    return np.stack(idxs, -1).astype(np.int64), np.stack(ws, -1)
+    tap_idx = np.stack(idxs, -1).astype(np.int64)
+    flat_idx = tap_idx.reshape(-1)
+    order = np.argsort(flat_idx, kind="stable").astype(np.int64)
+    bounds = np.searchsorted(flat_idx[order],
+                             np.arange(6 * R * R + 1)).astype(np.int64)
+    return tap_idx, np.stack(ws, -1), order, bounds
 
 
-def _latlong_tap_idx(res_cube: int, h: int, w: int) -> np.ndarray:
-    return _latlong_taps(res_cube, h, w)[0]
+def _latlong_table(res_cube: int, h: int, w: int, k: int) -> np.ndarray:
+    """Table k (tap ids, weights, order, bounds) of `_latlong_struct`."""
+    return _latlong_struct(res_cube, h, w)[k]
 
 
-def _latlong_tap_w(res_cube: int, h: int, w: int) -> np.ndarray:
-    return _latlong_taps(res_cube, h, w)[1]
+class _LatlongSample(torch.autograd.Function):
+    """base [6, R, R, 3] -> [HW, 3]: the weighted sum of each lat-long
+    pixel's four taps, with JAX's custom VJP (light.py:150-163): the tap
+    cotangents are gathered in texel order and each texel's sum is the
+    difference of an f32 prefix sum at its segment bounds. No scatter, no
+    atomics: the backward gives the same bits on every call. The scan runs
+    along the contiguous axis of a [3, 4HW] copy (a CUDA cumsum along dim
+    0 scans each column in one thread)."""
+
+    @staticmethod
+    def forward(ctx, base, tap_idx, tap_w, order, bounds):
+        ctx.save_for_backward(tap_w, order, bounds)
+        ctx.shape = base.shape
+        taps = base.reshape(-1, 3).index_select(0, tap_idx.reshape(-1))
+        return (taps.reshape(-1, 4, 3) * tap_w[..., None]).sum(1)
+
+    @staticmethod
+    def backward(ctx, g):
+        tap_w, order, bounds = ctx.saved_tensors
+        tapg = (g.reshape(-1, 1, 3) * tap_w[..., None]).reshape(-1, 3)
+        srt = tapg.t().index_select(1, order)              # [3, 4HW]
+        csum = torch.cat([srt.new_zeros((3, 1)),
+                          torch.cumsum(srt, dim=1, dtype=torch.float32)],
+                         dim=1)
+        seg = csum.index_select(1, bounds[1:]) - \
+            csum.index_select(1, bounds[:-1])
+        return seg.t().reshape(ctx.shape), None, None, None, None
 
 
 def make_latlong_sampler(res_cube: int, res: Sequence[int] = (512, 1024)):
     """f(base [6, R, R, 3]) -> [H, W, 3], the lat-long image of
-    `export_envmap` as one gather of the static tap table (kept on the
-    base's device); autograd's index scatter-add is its backward (JAX
-    transposes it by a static cumsum instead). Used by the per-step env-TV
-    loss (train.py:409-416)."""
+    `export_envmap` as one gather of the static tap table, whose backward
+    is JAX's static sorted gather and cumsum segments (`_LatlongSample`);
+    the tables stay on the base's device. Used by the per-step env-TV loss
+    (train.py:409-416)."""
     h, w = res
 
     def sample(base: torch.Tensor) -> torch.Tensor:
-        idx = device_constant(_latlong_tap_idx, res_cube, h, w,
-                              device=base.device)
-        wts = device_constant(_latlong_tap_w, res_cube, h, w,
-                              device=base.device)
-        taps = base.reshape(-1, 3)[idx]                     # [HW, 4, 3]
-        return (taps * wts[..., None]).sum(1).reshape(h, w, 3)
+        tables = [device_constant(_latlong_table, res_cube, h, w, k,
+                                  device=base.device) for k in range(4)]
+        return _LatlongSample.apply(base, *tables).reshape(h, w, 3)
 
     return sample
+
+
+def export_envmap_np(base, res: Sequence[int] = (512, 1024)) -> np.ndarray:
+    """Host-side export through the static tap tables (JAX light.py:80-90):
+    the bilinear rule of `export_envmap` in numpy, for a cubemap
+    [6, R, R, 3] given as an array or a tensor on any device."""
+    if isinstance(base, torch.Tensor):
+        base = base.detach().cpu().numpy()
+    base = np.asarray(base)
+    tap_idx, tap_w, _, _ = _latlong_struct(base.shape[1], res[0], res[1])
+    out = (base.reshape(-1, 3)[tap_idx] * tap_w[..., None]).sum(axis=1)
+    return out.reshape(res[0], res[1], 3).astype(np.float32)
 
 
 def export_envmap(base: torch.Tensor, res: Sequence[int] = (512, 1024)
@@ -159,6 +203,18 @@ def latlong_to_cubemap(latlong: torch.Tensor, res: int) -> torch.Tensor:
     du, dv = du[..., None], dv[..., None]
     return (c00 * (1 - du) * (1 - dv) + c01 * du * (1 - dv) +
             c10 * (1 - du) * dv + c11 * du * dv)
+
+
+def split_envmap_loss(base: torch.Tensor, gt_envmap) -> Tuple[float, float]:
+    """Fork diagnostic (pbr/light.py:119-134; JAX light.py:198-206): MSE of
+    the exported lat-long's upper and lower halves against the upper half
+    of a GT envmap [H, W, 3] (the fork resizes its HDRI to 1024x512)."""
+    gt = torch.as_tensor(gt_envmap, dtype=torch.float32, device=base.device)
+    exported = export_envmap(base, (gt.shape[0], gt.shape[1]))
+    h_half = exported.shape[0] // 2
+    upper = float(((exported[:h_half] - gt[:h_half]) ** 2).mean())
+    lower = float(((exported[h_half:] - gt[:h_half]) ** 2).mean())
+    return upper, lower
 
 
 def decode_hdr(path: str) -> Tuple[np.ndarray, str]:

@@ -1,5 +1,5 @@
-"""Cubemap sampling and diffuse/GGX prefiltering (port of the forward
-parts of gi_gs_tpu/ops/cubemap.py; ref nvdiffrast cube lookups and
+"""Cubemap sampling and diffuse/GGX prefiltering (port of
+gi_gs_tpu/ops/cubemap.py; ref nvdiffrast cube lookups and
 renderutils/c_src/cubemap.cu).
 
 The prefilter is linear in the texels with static weights. Levels up to
@@ -7,14 +7,19 @@ The prefilter is linear in the texels with static weights. Levels up to
 higher levels are a locally connected halo filter
 out[f, c, y, x] = sum_p W[f, p, y, x] * pad[f, c, y + dy, x + dx]
 over halo-padded faces (`_patch_tables`). That filter is an autograd
-Function (`_PatchFilter`, JAX's custom VJP `_specular_apply_patch`): its
-forward is the CUDA kernel `csrc/patch_fwd.cu` (`patch_fwd`) on CUDA
-tensors and `_patch_fwd_plain` on CPU tensors, its backward the transpose
-`csrc/patch_bwd.cu` (`patch_bwd`) or `_patch_bwd_plain`; W is a constant
-table. The halo gather around it is torch, so autograd of its gathers
-scatters the border of the padded cotangent back (JAX's `_sap_bwd`
-segment sum; the interior is the identity). `cubemap_mip` is a Function
-too, with JAX's backward `_mip_bwd`.
+Function over the level's cubemap (`_PatchFilter`, JAX's custom VJP
+`_specular_apply_patch`): its forward gathers the halo and runs the CUDA
+kernel `csrc/patch_fwd.cu` (`patch_fwd`) on CUDA tensors or
+`_patch_fwd_plain` on CPU tensors; its backward runs the transpose
+`csrc/patch_bwd.cu` (`patch_bwd`) or `_patch_bwd_plain`, keeps the core
+and adds the halo ring back with one segment sum over the static border
+positions (JAX's `_sap_bwd`); W is a constant table. `cubemap_mip` is a
+Function too, with JAX's backward `_mip_bwd`.
+
+Every differentiable texture gather goes through `take_rows` (JAX's
+`take_rows` / `take_rows3`), whose backward is one `index_add_` of the
+cotangent rows, so no autograd index backward (a sort of the indices and
+a serial sum per run of equal ones) is left on the light's path.
 
 The numpy table builders are cached per (resolution, roughness); the
 prefilter tables are copied to the device once per light build, the small
@@ -104,20 +109,68 @@ def _halo_index_map(res: int, h: int) -> np.ndarray:
     return (fc * res * res + vv * res + uu).astype(np.int32)
 
 
+class _TakeRows(torch.autograd.Function):
+    """flat [T, C] gathered at idx [...] -> [..., C] (JAX's `take_rows` /
+    `take_rows3`, cubemap.py:69-117). The backward scatter-adds the
+    cotangent rows into a zero [T, C] with one `index_add_` (JAX adds one
+    column at a time only because TPU row-update scatters were slow); the
+    sums are the same, in another order."""
+
+    @staticmethod
+    def forward(ctx, flat, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = flat.shape[0]
+        return flat.index_select(0, idx.reshape(-1)).reshape(
+            *idx.shape, flat.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        C = g.shape[-1]
+        out = g.new_zeros((ctx.rows, C)).index_add_(
+            0, idx.reshape(-1), g.reshape(-1, C))
+        return out, None
+
+
+def take_rows(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """flat [T, C] gathered at the int64 row ids idx [...] -> [..., C],
+    with the scatter-add backward of `_TakeRows`."""
+    return _TakeRows.apply(flat, idx)
+
+
 @functools.lru_cache(maxsize=8)
 def _edge_index_map(res: int) -> np.ndarray:
-    """The 1-texel halo map, int64 for indexing (kept on the device by
-    `pad_cubemap`)."""
+    """The 1-texel halo map, int64 for indexing."""
     return _halo_index_map(res, 1).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=8)
+def _edge_strips(res: int) -> np.ndarray:
+    """int64 source texels of the four halo strips of `pad_cubemap`, one
+    after the other: top [6, 1, R+2], bottom [6, 1, R+2], left [6, R, 1],
+    right [6, R, 1]."""
+    emap, R = _edge_index_map(res), res
+    return np.concatenate([emap[:, 0:1, :].ravel(), emap[:, R + 1:, :].ravel(),
+                           emap[:, 1:R + 1, 0:1].ravel(),
+                           emap[:, 1:R + 1, R + 1:].ravel()])
 
 
 def pad_cubemap(cubemap: torch.Tensor) -> torch.Tensor:
     """[6, R, R, C] -> [6, R+2, R+2, C] with a 1-texel cross-face halo
-    (nvdiffrast boundary_mode="cube" emulation)."""
-    R = cubemap.shape[1]
-    flat = cubemap.reshape(-1, cubemap.shape[-1])
-    emap = device_constant(_edge_index_map, R, device=cubemap.device)
-    return flat[emap]
+    (nvdiffrast boundary_mode="cube" emulation). The halo map is the
+    identity inside each face, so only the four border strips are gathered
+    (JAX cubemap.py:170-185; here in one `take_rows`) and concatenated
+    around the face."""
+    R, C = cubemap.shape[1], cubemap.shape[-1]
+    E = R + 2
+    flat = cubemap.reshape(-1, C)
+    strips = take_rows(flat, device_constant(_edge_strips, R,
+                                             device=cubemap.device))
+    top, bot, left, right = strips.split([6 * E, 6 * E, 6 * R, 6 * R])
+    mid = torch.cat([left.reshape(6, R, 1, C), cubemap,
+                     right.reshape(6, R, 1, C)], dim=2)
+    return torch.cat([top.reshape(6, 1, E, C), mid,
+                      bot.reshape(6, 1, E, C)], dim=1)
 
 
 def quad_pack(padded: torch.Tensor) -> torch.Tensor:
@@ -143,7 +196,7 @@ def sample_cubemap_flat(cubemap: torch.Tensor, dx, dy, dz):
     E1 = R + 1
     idx = (face * E1 * E1 + (v0.to(torch.int64) + 1) * E1 +
            (u0.to(torch.int64) + 1))
-    Q = quad[idx]                                   # [P, 12]
+    Q = take_rows(quad, idx)                        # [P, 12]
     w00 = (1 - du) * (1 - dv)
     w01 = du * (1 - dv)
     w10 = (1 - du) * dv
@@ -369,24 +422,6 @@ def patch_resources(kernel: str, R: int, h: int, device: torch.device
     return dict(res, grid=grid, ctas=grid[0] * grid[1] * grid[2])
 
 
-class _PatchFilter(torch.autograd.Function):
-    """The halo filter of the padded faces with its hand backward: W is a
-    constant table (no gradient), so the backward is the transpose alone,
-    as JAX's `_sap_bwd` (cubemap.py:540-560) runs `patch_apply_bwd`."""
-
-    @staticmethod
-    def forward(ctx, padded, W, h):
-        ctx.save_for_backward(W)
-        ctx.h = h
-        return patch_fwd(W, padded, W.shape[-1], 2 * h + 1, h)
-
-    @staticmethod
-    def backward(ctx, g):
-        W, = ctx.saved_tensors
-        h = ctx.h
-        return patch_bwd(W, g, W.shape[-1], 2 * h + 1, h), None, None
-
-
 def halo_pad(cubemap: torch.Tensor, src_idx: torch.Tensor, h: int
              ) -> torch.Tensor:
     """[6, R, R, 3] -> the halo-padded faces [6, 3, R+2h, R+2h] that
@@ -404,11 +439,51 @@ def halo_pad(cubemap: torch.Tensor, src_idx: torch.Tensor, h: int
     return torch.cat([top, mid, bot], dim=1).permute(0, 3, 1, 2)
 
 
+@functools.lru_cache(maxsize=16)
+def _halo_border(res: int, h: int) -> np.ndarray:
+    """int64 flat positions in [6, R+2h, R+2h] of the halo ring (every
+    padded position outside the face's interior), in order."""
+    E = res + 2 * h
+    ey, ex = np.meshgrid(np.arange(E), np.arange(E), indexing="ij")
+    border = (ey < h) | (ey >= h + res) | (ex < h) | (ex >= h + res)
+    return np.nonzero(np.tile(border.ravel(), 6))[0].astype(np.int64)
+
+
+class _PatchFilter(torch.autograd.Function):
+    """The halo filter of one level's cubemap [6, R, R, 3] with JAX's hand
+    VJP (`_specular_apply_patch`, `_sap_bwd`, cubemap.py:507-563). W and
+    src_idx are constant tables (no gradient). The backward runs the
+    transpose `patch_bwd` into the padded layout, keeps the core and adds
+    the halo ring to the texels it was gathered from with one segment sum
+    (`index_add_`) over the static border positions."""
+
+    @staticmethod
+    def forward(ctx, cubemap, src_idx, W, h):
+        ctx.save_for_backward(src_idx, W)
+        ctx.h = h
+        R = cubemap.shape[1]
+        padded = halo_pad(cubemap, src_idx, h)
+        return patch_fwd(W, padded, R, 2 * h + 1, h).permute(0, 2, 3, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        src_idx, W = ctx.saved_tensors
+        h = ctx.h
+        R = W.shape[-1]
+        bar = patch_bwd(W, g.permute(0, 3, 1, 2), R, 2 * h + 1, h)
+        bar = bar.permute(0, 2, 3, 1)                  # [6, E, E, 3]
+        core = bar[:, h:h + R, h:h + R].reshape(-1, 3)
+        bpos = device_constant(_halo_border, R, h, device=g.device)
+        bsrc = src_idx.reshape(-1).index_select(0, bpos).long()
+        bvals = bar.reshape(-1, 3).index_select(0, bpos)
+        ring = torch.zeros_like(core).index_add_(0, bsrc, bvals)
+        return (core + ring).reshape(6, R, R, 3), None, None, None
+
+
 def _specular_apply_patch(cubemap: torch.Tensor, src_idx: torch.Tensor,
                           W: torch.Tensor, h: int) -> torch.Tensor:
     """out[f, y, x] = sum_p W[f, p, y, x] * padded[f, y+dy, x+dx]."""
-    padded = halo_pad(cubemap, src_idx, h)
-    return _PatchFilter.apply(padded, W, h).permute(0, 2, 3, 1)
+    return _PatchFilter.apply(cubemap, src_idx, W, h)
 
 
 def _specular_apply_dense(cubemap: torch.Tensor, M: torch.Tensor

@@ -114,7 +114,7 @@ def _sample_brdf_lut_flat(nov, roughness, res: int = 256):
     v = clip(roughness * res - 0.5, 0.0, res - 1)
     u0, v0 = torch.floor(u), torch.floor(v)
     du, dv = u - u0, v - v0
-    Q = quad[v0.to(torch.int64) * res + u0.to(torch.int64)]
+    Q = cm.take_rows(quad, v0.to(torch.int64) * res + u0.to(torch.int64))
     w00 = (1 - du) * (1 - dv)
     w01 = du * (1 - dv)
     w10 = (1 - du) * dv
@@ -134,7 +134,8 @@ def _level_rows(ress) -> np.ndarray:
 def _trilinear_specular_flat(specular, dx, dy, dz, mip):
     """Per-pixel fractional-mip lookup over the prefiltered stack
     (dr.texture linear-mipmap-linear): each pixel gathers one quad row
-    from each of its two adjacent levels."""
+    from each of its two adjacent levels (`take_rows`, whose backward is
+    one `index_add_` into the concatenated quad tables)."""
     L = len(specular)
     quads = [cm.quad_pack(cm.pad_cubemap(s)) for s in specular]
     flatq = torch.cat(quads, dim=0)
@@ -160,7 +161,7 @@ def _trilinear_specular_flat(specular, dx, dy, dz, mip):
         dv = clip(v - v0, 0.0, 1.0)
         idx = offs_t[lvl] + face * E1 * E1 + \
             (v0.to(torch.int64) + 1) * E1 + (u0.to(torch.int64) + 1)
-        Q = flatq[idx]
+        Q = cm.take_rows(flatq, idx)
         w00 = (1 - du) * (1 - dv)
         w01 = du * (1 - dv)
         w10 = (1 - du) * dv

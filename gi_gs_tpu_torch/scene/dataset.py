@@ -1,9 +1,10 @@
-"""Scene loading (port of the Blender branch of
-gi_gs_tpu/scene/dataset.py; ref readNerfSyntheticInfo,
-scene/dataset_readers.py:283-325). Host side: numpy camera records plus
-the initial point cloud and the NeRF++ radius; frames are resized as
-`--resolution` asks (PIL, imported only then). COLMAP scenes raise until
-their slice is ported."""
+"""Scene loading (port of gi_gs_tpu/scene/dataset.py; ref
+scene/dataset_readers.py): COLMAP `sparse/0` captures (`load_colmap`) and
+Blender / NeRF-synthetic scenes (`load_blender`), dispatched by
+`load_scene`. Host side: numpy camera records plus the initial point
+cloud and the NeRF++ radius; frames are resized as `--resolution` asks
+(PIL, imported only then). PNG frames are read by the built-in decoder,
+other formats (COLMAP captures are mostly JPEG) through PIL."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,8 +15,9 @@ from typing import List, Optional
 
 import numpy as np
 
-from . import ply
+from . import colmap, ply
 from .cameras import Camera, make_camera
+from .. import native
 from ..utils.image_io import read_png
 from ..utils.math_utils import focal2fov, fov2focal, world_to_view
 
@@ -82,6 +84,23 @@ def _resize(pixels: np.ndarray, size) -> np.ndarray:
     img = Image.fromarray(pixels[..., 0] if pixels.shape[2] == 1 else pixels)
     out = np.asarray(img.resize(size))
     return out[..., None] if out.ndim == 2 else out
+
+
+def _read_image(path: str) -> np.ndarray:
+    """[H, W, C] uint8 pixels of a frame: PNGs through `read_png`, any
+    other format through PIL (which JAX's loader opens every frame with)."""
+    try:
+        return read_png(path)
+    except ValueError:
+        pass
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(f"{path} is not an 8-bit PNG; reading it needs "
+                           "PIL (pip package Pillow)") from e
+    with Image.open(path) as img:
+        pixels = np.asarray(img)
+    return pixels[..., None] if pixels.ndim == 2 else pixels
 
 
 def _record_from(uid, name, R, T, fovx, fovy, pixels: np.ndarray,
@@ -165,10 +184,69 @@ def load_blender(path: str, white_background: bool = True,
                      ply_path=ply_path)
 
 
+def load_colmap(path: str, images: str = "images", eval_split: bool = True,
+                llffhold: int = 8, resolution: int = -1,
+                max_cameras: Optional[int] = None) -> SceneData:
+    """COLMAP sparse/0 loader (JAX dataset.py:170-226; ref
+    readColmapSceneInfo, scene/dataset_readers.py:170-221): binary model
+    files first, then text; frames sorted by name, every `llffhold`-th a
+    test view; the points cached as sparse/0/points3D.ply on first load."""
+    sparse = os.path.join(path, "sparse/0")
+    try:
+        cams = colmap.read_cameras_binary(os.path.join(sparse, "cameras.bin"))
+        imgs = native.read_images_binary(os.path.join(sparse, "images.bin"))
+    except FileNotFoundError:
+        cams = colmap.read_cameras_text(os.path.join(sparse, "cameras.txt"))
+        imgs = colmap.read_images_text(os.path.join(sparse, "images.txt"))
+
+    recs = []
+    for _, im in sorted(imgs.items(), key=lambda kv: kv[1].name):
+        cam = cams[im.camera_id]
+        R = np.transpose(colmap.qvec2rotmat(im.qvec))
+        T = np.array(im.tvec)
+        fx, fy = colmap.focals_from_camera(cam)
+        pixels = _read_image(os.path.join(path, images, im.name))
+        recs.append(_record_from(len(recs), Path(im.name).stem, R, T,
+                                 focal2fov(fx, cam.width),
+                                 focal2fov(fy, cam.height), pixels,
+                                 resolution))
+        if max_cameras is not None and len(recs) >= max_cameras:
+            break
+
+    if eval_split:
+        train = [c for i, c in enumerate(recs) if i % llffhold != 0]
+        test = [c for i, c in enumerate(recs) if i % llffhold == 0]
+    else:
+        train, test = recs, []
+    translate, radius = _nerfpp_norm(train)
+
+    ply_path = os.path.join(sparse, "points3D.ply")
+    if os.path.exists(ply_path):
+        xyz, colors, _ = ply.fetch_point_cloud(ply_path)
+    else:
+        try:
+            xyz, rgb, _ = native.read_points3d_binary(
+                os.path.join(sparse, "points3D.bin"))
+        except FileNotFoundError:
+            xyz, rgb, _ = colmap.read_points3d_text(
+                os.path.join(sparse, "points3D.txt"))
+        colors = rgb / 255.0
+        try:
+            ply.store_point_cloud(ply_path, xyz, rgb)
+        except OSError:
+            pass
+    return SceneData(train_cameras=train, test_cameras=test,
+                     points=xyz.astype(np.float32),
+                     colors=colors.astype(np.float32),
+                     cameras_extent=radius, translate=translate,
+                     ply_path=ply_path)
+
+
 def load_scene(path: str, **kwargs) -> SceneData:
     """Dataset-type dispatch (ref Scene.__init__, scene/__init__.py:60-77)."""
     if os.path.exists(os.path.join(path, "sparse")):
-        raise NotImplementedError("COLMAP loading is ported in a later slice")
+        kwargs.pop("white_background", None)
+        return load_colmap(path, **kwargs)
     if os.path.exists(os.path.join(path, "transforms_train.json")):
         kwargs.pop("images", None)
         kwargs.pop("llffhold", None)

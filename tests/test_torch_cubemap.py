@@ -273,9 +273,9 @@ def test_latlong_sampler_and_env_tv_match_jax():
     same taps) and export_envmap (rtol 1e-4, atol 5e-6 as
     tests/test_cubemap.py: its taps come from an f64 direction grid,
     export_envmap's from f32), and env-TV and its cubemap gradient equal
-    JAX's env_tv_loss: JAX transposes the sampler by a static f32 cumsum,
-    the port by autograd's scatter-add, so the gradient is compared at
-    1e-4 of its largest magnitude."""
+    JAX's env_tv_loss: both transpose the sampler by the differences of an
+    f32 cumsum over the sorted taps, rounded in another association, so
+    the gradient is compared at 1e-4 of its largest magnitude."""
     from gi_gs_tpu.train import trainer as jtrainer
     from gi_gs_tpu_torch.train import trainer
     rng = np.random.RandomState(15)

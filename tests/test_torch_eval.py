@@ -62,6 +62,36 @@ def test_latlong_to_cubemap_matches_jax():
         np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["numpy", "tensor"])
+def test_export_envmap_np_matches_jax(as_tensor):
+    """The host-side export through the static tap tables equals JAX's
+    (the same numpy taps and weights, summed alike), from a numpy array or
+    a tensor, and agrees with the device export `export_envmap` within
+    its test tolerance (its directions are f32, the taps' f64)."""
+    base = np.random.RandomState(17).uniform(0, 2, (6, 16, 16, 3)).astype(
+        np.float32)
+    want = jax_light.export_envmap_np(base, (32, 64))
+    got = light.export_envmap_np(torch.as_tensor(base) if as_tensor else base,
+                                 (32, 64))
+    assert got.dtype == np.float32 and got.shape == (32, 64, 3)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(
+        got, light.export_envmap(torch.as_tensor(base), (32, 64)).numpy(),
+        rtol=1e-4, atol=5e-6)
+
+
+def test_split_envmap_loss_matches_jax():
+    """The fork's upper/lower-half envmap MSEs against a GT lat-long equal
+    JAX's within 1e-6 relative (f32 means over the same samples)."""
+    rng = np.random.RandomState(18)
+    base = rng.uniform(0, 2, (6, 16, 16, 3)).astype(np.float32)
+    gt = rng.uniform(0, 2, (32, 64, 3)).astype(np.float32)
+    want = jax_light.split_envmap_loss(jnp.asarray(base), jnp.asarray(gt))
+    got = light.split_envmap_loss(torch.as_tensor(base), gt)
+    assert got == pytest.approx(want, rel=1e-6)
+    assert got[0] != got[1]
+
+
 def _rgbe(img: np.ndarray) -> np.ndarray:
     """f32 RGB [H, W, 3] -> RGBE bytes [H, W, 4] (shared exponent)."""
     m = img.max(-1)

@@ -484,3 +484,77 @@ def test_patch_bwd_matches_plain(dev, R, rough):
         (fn(c, src, W, h) * gout).sum().backward()
         grads.append(c.grad)
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+
+
+def _transpose_case(case: str, device):
+    """One gather transpose at the phase-2 path's shapes, inputs from a
+    numpy seed on `device`: (forward output, input cotangent)."""
+    from gi_gs_tpu_torch.models import light as light_mod
+    rng = np.random.RandomState(31)
+    t = lambda a, **kw: torch.tensor(a, device=device, **kw)
+    if case.startswith("take_rows"):
+        # 800x800 lookups into the 16^2 diffuse quad table (1,734 rows,
+        # C = 12), or 20,000 into 17 rows of C = 3
+        rows, C, n = (1734, 12, 640_000) if case == "take_rows_1734" else \
+            (17, 3, 20_000)
+        flat = t(rng.randn(rows, C).astype(np.float32), requires_grad=True)
+        idx = t(rng.randint(0, rows, n))
+        out = cm.take_rows(flat, idx)
+        leaf, cot = flat, rng.randn(n, C)
+    elif case == "pad_cubemap":
+        leaf = t(rng.rand(6, 256, 256, 3).astype(np.float32),
+                 requires_grad=True)
+        out = cm.pad_cubemap(leaf)
+        cot = rng.randn(6, 258, 258, 3)
+    elif case == "patch_filter":
+        h, src, W = cm._patch_tables(256, 0.08, 0.99)
+        leaf = t(rng.rand(6, 256, 256, 3).astype(np.float32),
+                 requires_grad=True)
+        out = cm._specular_apply_patch(leaf, t(src), t(W), h)
+        cot = rng.randn(6, 256, 256, 3)
+    else:
+        leaf = t(rng.rand(6, 256, 256, 3).astype(np.float32),
+                 requires_grad=True)
+        out = light_mod.make_latlong_sampler(256)(leaf)
+        cot = rng.randn(512, 1024, 3)
+    out.backward(t(cot.astype(np.float32)))
+    return out.detach().cpu(), leaf.grad.cpu(), cot
+
+
+def _largest_prefix(cot: np.ndarray) -> float:
+    """The largest |prefix sum| of the lat-long sampler's sorted tap
+    cotangents (512x1024 from a 256^2 cube): the scale of its f32 cumsum
+    differences' rounding."""
+    from gi_gs_tpu_torch.models import light as light_mod
+    _, w, order, _ = light_mod._latlong_struct(256, 512, 1024)
+    taps = (cot.reshape(-1, 1, 3) * w[..., None]).reshape(-1, 3)
+    return float(np.abs(np.cumsum(taps[order], axis=0)).max())
+
+
+@pytest.mark.parametrize("case", ["take_rows_1734", "take_rows_17",
+                                  "pad_cubemap", "patch_filter", "latlong"])
+def test_gather_transposes_match_cpu(dev, case):
+    """Each transpose's Function on CUDA tensors against the same Function
+    on CPU tensors: forwards within 1e-6 (the same gathers; the patch
+    filter and the four-tap sums may round apart); cotangents within 1e-5
+    x the largest (`index_add_` adds on the card in atomic order), the
+    lat-long sampler's within 4 f32 ulps (2^-23) of its largest prefix
+    sum: each is a difference of two f32 prefix sums over all 2.1M taps,
+    which the card and the CPU scan in another association, so their
+    rounding scales with the prefix, not with the cotangent."""
+    ko, kg, cot = _transpose_case(case, dev)
+    po, pg, _ = _transpose_case(case, torch.device("cpu"))
+    torch.testing.assert_close(ko, po, rtol=1e-6, atol=1e-6)
+    scale = float(pg.abs().max())
+    assert scale > 0
+    atol = (4 * 2.0 ** -23 * _largest_prefix(cot) if case == "latlong"
+            else 1e-5 * scale)
+    torch.testing.assert_close(kg, pg, rtol=0, atol=atol)
+
+
+def test_latlong_backward_is_deterministic(dev):
+    """The env-TV sampler's backward (a gather in texel order and the
+    differences of a cumsum, no atomics) gives the same bits on every call
+    on the card, at the training shapes (a 256^2 cube, 512x1024)."""
+    grads = [_transpose_case("latlong", dev)[1] for _ in range(3)]
+    assert all(torch.equal(grads[0], g) for g in grads[1:])

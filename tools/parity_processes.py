@@ -19,8 +19,10 @@ a 64x48 view, the exact march) and renders it with `render_pbr_view`:
 `--quick` renders only cpu, cuda and, last, cpu#2 (a second CPU render,
 which shows whether the first one moved): three renders instead of six.
 Every render records, each as a short md5, the rasterizer's stages (the
-SH colours `sh`; preprocess's inputs: the means `xyz`, the 3D covariances
-`cov`, the activated opacities `op`, the camera matrices `cam`; its
+SH colours `sh`; the inputs of `build_covariance_3d`: the rounded scales
+`scl` (`get_scaling`'s output) and the raw quaternions `rot`;
+preprocess's inputs: the means `xyz`, the 3D covariances `cov`, the
+activated opacities `op`, the camera matrices `cam`; its
 output `pre`, and where that moved, which of its fields; the binned
 instance ids `bin`, the compositing table `tab`, the composited
 accumulators `acc`),
@@ -50,8 +52,8 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GI_KEYS = ("occlusion_map", "diffuse_rgb", "render_rgb", "indirect")
-STAGES = ("sh", "xyz", "cov", "op", "cam", "pre", "bin", "tab", "acc", "nv",
-          "pos", "occ", "snv", "rgb", "dif", "out")
+STAGES = ("sh", "scl", "rot", "xyz", "cov", "op", "cam", "pre", "bin", "tab",
+          "acc", "nv", "pos", "occ", "snv", "rgb", "dif", "out")
 # the fields of preprocess's output hashed one by one (`pre` is all of them)
 PRE_FIELDS = ("means2d", "conic", "depth", "pos_view", "radius", "rect_min",
               "tiles_touched")
@@ -99,6 +101,7 @@ def worker(repeats: int, quick: bool) -> None:
     from gi_gs_tpu_torch.ops import sh as sh_ops
     from gi_gs_tpu_torch.ops.rasterize import pipeline
     from gi_gs_tpu_torch.scene.cameras import make_camera
+    from gi_gs_tpu_torch.utils import math_utils
 
     print(host_line(torch), flush=True)
     rng = np.random.RandomState(1)       # chip_smoke: --seed 0, plus 1
@@ -136,6 +139,12 @@ def worker(repeats: int, quick: bool) -> None:
         setattr(module, attr, wrapped)
 
     stage("sh", sh_ops, "eval_sh")
+    build_cov = math_utils.build_covariance_3d
+
+    def recorded_cov(scaling, rotation_raw, *a, **kw):
+        staged.update(scl=md5([scaling]), rot=md5([rotation_raw]))
+        return build_cov(scaling, rotation_raw, *a, **kw)
+    math_utils.build_covariance_3d = recorded_cov
     preprocess = pipeline.preprocess
 
     def recorded_preprocess(means3d, cov3d, w2c, full_proj, *a, **kw):
