@@ -81,6 +81,25 @@ Phases (any failure exits non-zero):
                then the train CLI on it, 6 phase-1 and 6 phase-2 steps
                (--indirect, light_base_res 256), launch counts set to 0
                just before: every training kernel must launch
+ 15. parallel  (a) the tile_base compositing kernels: phase 7's trained
+               state on its train view 0 at the train CLI's final
+               RasterConfig (16x64 tiles, a 50 x 13 grid of 650 tiles)
+               composited as 4 contiguous tile ranges (padded to 652, 163
+               tiles each) one after the other: forward accumulators and
+               final T bit-equal to the whole-image launch, backward rows
+               summed over the ranges bit-equal to its rows, each range
+               against its plain version at the tolerances of phases 4 and
+               8, each range's ms and the whole launch's; (b) a
+               torch.distributed group of world size 1 over NCCL
+               (tcp://127.0.0.1, a free port): 3 make_dp_phase1_step
+               steps on a batch of 2 of the train views and 3
+               make_dp_phase2_step steps (--indirect, light 256) from
+               phase 7's checkpoint, each first loss equal to the mean of
+               the two views' make_phase{1,2}_step losses within 1e-5
+               relative; (c) 3 make_ts_phase1_step steps against 3
+               make_phase1_step steps: losses and stats.accum equal. Per
+               step ms, collectives and kernel launches. One card: no
+               multi-GPU run
 Phase 4 also holds composite_fwd_peak against its plain version on view 0
 (accumulator rows bit-equal to composite_fwd's, <= 0.1% of covered pixels
 with another peak), and phase 6 the argmax render on CUDA against CPU.
@@ -99,10 +118,13 @@ last {"ok": true, "device": {...}}. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import copy
+import datetime
 import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -126,6 +148,8 @@ TRAIN_STEPS = 30
 PHASE2_STEPS = 20
 COLMAP_P1_STEPS = 6
 COLMAP_P2_STEPS = 6
+PAR_STEPS = 3
+TILE_RANGES = 4
 
 
 def fail(msg: str) -> None:
@@ -675,10 +699,10 @@ TPU_KERNELS = [
     ("gi_gs_tpu/ops/rasterize/pallas_expand.py:226", "pack_rows",
      "folded into expand"),
     ("gi_gs_tpu/ops/rasterize/pallas_composite.py:238",
-     "composite_fwd_pallas", "ported: composite_fwd (peak=False), "
-     "composite_fwd_peak (peak=True)"),
+     "composite_fwd_pallas", "ported: composite_fwd (peak=False, with "
+     "tile_base), composite_fwd_peak (peak=True)"),
     ("gi_gs_tpu/ops/rasterize/pallas_composite.py:455",
-     "composite_bwd_pallas", "ported: composite_bwd"),
+     "composite_bwd_pallas", "ported: composite_bwd (with tile_base)"),
     ("gi_gs_tpu/ops/pallas_gi.py:522", "_march_pallas(mode=exact)",
      "ported: gi_march"),
     ("gi_gs_tpu/ops/pallas_gi.py:522", "_march_pallas(mode=coherent)",
@@ -858,7 +882,6 @@ def main() -> None:
 
     # -- 8. composite_bwd at the training path's settings ---------------------
     entries.insert(2, composite_bwd_phase(torch, dev, train_res, train_data))
-    del train_res
 
     # -- 9. train parity: one phase-1 gradient, kernels vs plain --------------
     t0 = time.time()
@@ -887,6 +910,12 @@ def main() -> None:
     # -- 14. a COLMAP capture: the train CLI through both phases -------------
     colmap_launches = colmap_phase(torch, dev, ck, work, train_data)
 
+    # -- 15. parallel: the tile_base kernels, DP and TS at world size 1 ------
+    ranges = tile_range_phase(torch, dev, train_res, train_data, card)
+    par_launches = parallel_phase(torch, dev, ck, train_res, work,
+                                  train_data, card)
+    del train_res
+
     # each kernel's launches from the run of the path it serves: the render
     # CLI for the serving kernels, the phase-1 train CLI for composite_bwd,
     # the phase-2 train CLI for gi_march_coherent and patch_bwd, the argmax
@@ -900,6 +929,9 @@ def main() -> None:
         e["launches_in_phase2"] = p2_launches[e["name"]]
         e["launches_in_argmax_render"] = argmax_launches[e["name"]]
         e["launches_in_colmap_training"] = colmap_launches[e["name"]]
+        e["launches_in_parallel_steps"] = par_launches[e["name"]]
+        if e["name"] in ranges:
+            e["tile_ranges"] = ranges[e["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     table = {"kernels": [dict({k: e[k] for k in keys},
@@ -1744,6 +1776,278 @@ def colmap_phase(torch, dev, ck, work_dir, train_data):
     if not math.isfinite(metrics["psnr"]):
         fail("non-finite COLMAP eval")
     return launches
+
+
+def tile_range_phase(torch, dev, res, data, card):
+    """Phase 15 (a): composite_fwd and composite_bwd over TILE_RANGES
+    contiguous tile ranges (`tile_base`, the ranges of
+    pipeline._composite_local_tiles at TILE_RANGES ranks) of phase 7's
+    trained state on train view 0 at the train CLI's final RasterConfig,
+    against the whole-image launch (bit-equal) and against the plain
+    versions. Returns {kernel: its tile-range keys of the JSON line}."""
+    from gi_gs_tpu_torch.ops.rasterize import binning, composite
+    from gi_gs_tpu_torch.ops.rasterize.preprocess import preprocess
+    from gi_gs_tpu_torch.scene.dataset import load_scene
+    rc = res["cfg"].raster
+    p = res["state"].params
+    cam = load_scene(data, eval_split=True).train_cameras[0].camera(dev)
+    H, W = cam.height, cam.width
+    with torch.no_grad():
+        opacity = p.get_opacity()
+        pre = preprocess(p.xyz, p.get_covariance(), cam.w2c, cam.full_proj,
+                         cam.tanfovx, cam.tanfovy, W, H, rc, opacity=opacity)
+        b = binning.bin_and_sort(pre, H, W, rc)
+        table = composite.composite_table(
+            pre, opacity, p.colors_from_sh(cam.cam_pos), p.get_normal(),
+            p.get_albedo(), p.get_roughness(), p.get_metallic())
+        grid = rc.grid(H, W)
+        T = grid[0] * grid[1]
+        t_local = -(-T // TILE_RANGES)
+        pad = TILE_RANGES * t_local - T
+        fargs = (table, b.ids, b.tile_start, b.tile_count, rc, grid)
+        acc, fin = composite.composite_fwd(*fargs)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        g_acc = torch.randn(acc.shape, device=dev, generator=gen)
+        g_t = torch.randn(fin.shape, device=dev, generator=gen)
+        bargs = (table, b.ids, b.tile_start, b.tile_count,
+                 acc[:, :4].contiguous(), fin, g_acc, g_t, rc, grid, (H, W))
+        rows = composite.composite_bwd(*bargs)
+        padded = lambda x: torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+        ts, tc, ga, gt = map(padded, (b.tile_start, b.tile_count, g_acc,
+                                      g_t))
+        log(f"[tile ranges] phase 7's state on train view 0 ({W}x{H}), tile "
+            f"{rc.tile_h}x{rc.tile_w}, grid {grid[0]} x {grid[1]} = {T} "
+            f"tiles as {TILE_RANGES} ranges of {t_local} ({pad} padding "
+            f"tiles), cap_tile {rc.cap_tile}; {card}")
+        accs, fins, row_sum = [], [], torch.zeros_like(rows)
+        out = {k: {"ranges": TILE_RANGES, "tiles_per_range": t_local,
+                   "padding_tiles": pad, "range_ms": [],
+                   "range_max_abs_err": [], "range_instances": [],
+                   "range_max_tile_count": []}
+               for k in ("composite_fwd", "composite_bwd")}
+        for r in range(TILE_RANGES):
+            base = r * t_local
+            sl = slice(base, base + t_local)
+            rf = (table, b.ids, ts[sl], tc[sl], rc, grid)
+            a, f = composite.composite_fwd(*rf, tile_base=base)
+            pa, pt = composite._composite_fwd_plain(*rf, tile_base=base)
+            rb = (table, b.ids, ts[sl], tc[sl], a[:, :4].contiguous(), f,
+                  ga[sl], gt[sl], rc, grid, (H, W))
+            k = composite.composite_bwd(*rb, tile_base=base)
+            pk = composite._composite_bwd_plain(*rb, tile_base=base)
+            torch.cuda.synchronize()
+            if not (torch.allclose(a, pa, rtol=1e-5, atol=1e-3) and
+                    torch.allclose(f, pt, rtol=1e-5, atol=1e-5)):
+                fail(f"composite_fwd at tile_base {base} disagrees with its "
+                     "plain version")
+            scale = float(pk.abs().amax(dim=0).max()) + 1e-3
+            if not torch.allclose(k, pk, rtol=2e-4, atol=2e-5 * scale):
+                fail(f"composite_bwd at tile_base {base} disagrees with its "
+                     "plain version")
+            errs = (max(float((a - pa).abs().max()),
+                        float((f - pt).abs().max())),
+                    float((k - pk).abs().max()))
+            ms = (kernel_ms(lambda: composite.composite_fwd(
+                      *rf, tile_base=base), "composite_fwd", 10),
+                  kernel_ms(lambda: composite.composite_bwd(
+                      *rb, tile_base=base), "composite_bwd", 5))
+            n_inst, densest = int(tc[sl].sum()), int(tc[sl].max())
+            for name, e, m in zip(("composite_fwd", "composite_bwd"), errs,
+                                  ms):
+                out[name]["range_ms"].append(m)
+                out[name]["range_max_abs_err"].append(e)
+                out[name]["range_instances"].append(n_inst)
+                out[name]["range_max_tile_count"].append(densest)
+            log(f"  range {r} (tile_base {base}, {n_inst} instances, densest "
+                f"tile {densest}): composite_fwd {ms[0]:.3f} ms, "
+                f"composite_bwd {ms[1]:.3f} ms ({card}); max|kernel - "
+                f"plain| {errs[0]:.3e} / {errs[1]:.3e}")
+            accs.append(a)
+            fins.append(f)
+            row_sum += k
+        if not (torch.equal(torch.cat(accs)[:T], acc) and
+                torch.equal(torch.cat(fins)[:T], fin)):
+            fail("composite_fwd over tile ranges differs from the whole "
+                 "launch")
+        if not torch.equal(row_sum, rows):
+            fail("composite_bwd rows summed over tile ranges differ from the "
+                 "whole launch")
+        whole = (kernel_ms(lambda: composite.composite_fwd(*fargs),
+                           "composite_fwd", 10),
+                 kernel_ms(lambda: composite.composite_bwd(*bargs),
+                           "composite_bwd", 5))
+    for name, m in zip(("composite_fwd", "composite_bwd"), whole):
+        out[name]["whole_ms"] = m
+        out[name]["bit_equal_to_whole"] = True
+    log(f"  whole launch (tile_base 0): composite_fwd {whole[0]:.3f} ms, "
+        f"composite_bwd {whole[1]:.3f} ms; ranges bit-equal to it (forward "
+        f"rows; backward rows summed); {card}")
+    return out
+
+
+def step_profile(torch, step, state, args, iteration: int, n: int = 3):
+    """Device milliseconds per step by kernel over `n` steps (after one
+    warm-up step) under torch.profiler: (busy ms, {kernel: ms})."""
+    from torch.profiler import ProfilerActivity, profile
+    state, _ = step(state, *args, iteration)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            state, _ = step(state, *args, iteration + 1 + i)
+        torch.cuda.synchronize()
+    ms = {e.key: e.self_device_time_total / 1e3 / n
+          for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.self_device_time_total > 0}
+    return sum(ms.values()), ms
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase(torch, dev, ck, res, work_dir, data, card):
+    """Phase 15 (b) and (c): the data-parallel steps of both phases and
+    the tile-sharded step over a torch.distributed group of world size 1
+    over NCCL (the machine has one card), from phase 7's checkpoint at
+    iterations past its densification window, held against the
+    single-device steps. Returns the kernel launches of the DP and TS
+    steps."""
+    import torch.distributed as dist
+    from gi_gs_tpu_torch.parallel import collectives
+    from gi_gs_tpu_torch.parallel import data_parallel as dpm
+    from gi_gs_tpu_torch.parallel.tile_sharded import make_ts_phase1_step
+    from gi_gs_tpu_torch.scene.dataset import load_scene
+    from gi_gs_tpu_torch.train import trainer
+    from gi_gs_tpu_torch.train.optim import (build_light_optimizer,
+                                             build_optimizer)
+    from gi_gs_tpu_torch.utils.checkpoint import load_train_state
+    start = os.path.join(work_dir, "train_model", f"chkpnt{TRAIN_STEPS}.pt")
+    cfg = copy.deepcopy(res["cfg"])
+    cfg2 = copy.deepcopy(cfg)
+    cfg2.train.indirect = True
+    cfg2.train.light_base_res = LIGHT_RES
+    scene = load_scene(data, eval_split=True)
+    ext = scene.cameras_extent
+    recs = scene.train_cameras[:2]
+    cams = [r.camera(dev) for r in recs]
+    imgs = [torch.as_tensor(r.image, device=dev) for r in recs]
+    alphas = [torch.as_tensor(r.alpha, device=dev) for r in recs]
+    bg = torch.zeros(3, device=dev)
+    batch = (dpm.stack_cameras(cams), torch.stack(imgs), torch.stack(alphas),
+             bg)
+    first = TRAIN_STEPS + 1          # past --densify_until_iter 25
+    total = {k: 0 for k in ck.launches}
+
+    def run(step, args, label, counted=True):
+        state = load_train_state(start, dev)[0]
+        rows = []
+        for i in range(PAR_STEPS):
+            before = dict(ck.launches)
+            collectives.reset_calls()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, aux = step(state, *args, first + i)
+            loss = float(aux.loss)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            got = {k: ck.launches[k] - before[k] for k in before}
+            for k, v in got.items():
+                total[k] += v if counted else 0
+            rows.append(dict(loss=loss, ms=ms, collectives=dict(
+                collectives.calls), launches={k: v for k, v in got.items()
+                                              if v}))
+        if not all(math.isfinite(r["loss"]) for r in rows):
+            fail(f"{label}: non-finite loss {[r['loss'] for r in rows]}")
+        log(f"  {label}: per step ms " + ", ".join(
+            f"{r['ms']:.1f}" for r in rows) + f" ({card}); losses "
+            f"{[round(r['loss'], 6) for r in rows]}; collectives per step "
+            f"{rows[-1]['collectives']}; launches per step "
+            f"{rows[-1]['launches']}")
+        return rows, state
+
+    def single_loss(step, view):
+        state = load_train_state(start, dev)[0]
+        _, aux = step(state, cams[view], imgs[view], alphas[view], bg, first)
+        return float(aux.loss)
+
+    def same_mean(label, got, step):
+        want = np.mean([single_loss(step, v) for v in range(2)])
+        log(f"  {label}: first loss {got:.7f}, mean of the two views' "
+            f"single-device losses {want:.7f}")
+        if abs(got - want) > 1e-5 * abs(want):
+            fail(f"{label}: loss {got} is not the mean of the views' "
+                 f"single-device losses {want}")
+
+    try:
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=120))
+        probe = torch.ones(1, device=dev)
+        dist.all_reduce(probe)
+        torch.cuda.synchronize()
+    except (RuntimeError, ValueError) as e:
+        fail(f"NCCL did not come up at world size 1: {e}")
+    try:
+        log(f"[parallel] torch.distributed {dist.get_backend()} world size "
+            f"{dist.get_world_size()} (one card: no multi-GPU run), "
+            f"{PAR_STEPS} steps each from chkpnt{TRAIN_STEPS}.pt at "
+            f"iterations {first}-{first + PAR_STEPS - 1}, {SIZE}x{SIZE}")
+        tx = build_optimizer(cfg.opt, ext)
+        rows, _ = run(dpm.make_dp_phase1_step(cfg, ext, tx), batch,
+                      "dp phase 1 (batch of 2 views)")
+        same_mean("dp phase 1", rows[0]["loss"],
+                  trainer.make_phase1_step(cfg, ext, tx))
+        ltx = build_light_optimizer(cfg2.opt)
+        step2 = dpm.make_dp_phase2_step(cfg2, ext, tx, ltx)
+        rows2, _ = run(step2, batch, "dp phase 2 (batch of 2 views, "
+                       "--indirect, light 256)")
+        del step2
+        same_mean("dp phase 2", rows2[0]["loss"],
+                  trainer.make_phase2_step(cfg2, ext, tx, ltx))
+        for r in rows + rows2:
+            if r["collectives"] != {"all_reduce": 3, "all_gather": 0}:
+                fail(f"a dp step issued {r['collectives']} collectives")
+        one = (cams[0], imgs[0], alphas[0], bg)
+        ts_rows, ts_state = run(make_ts_phase1_step(cfg, ext, tx), one,
+                                "ts phase 1 (one view)")
+        ref_rows, ref_state = run(trainer.make_phase1_step(cfg, ext, tx), one,
+                                  "single-device phase 1 (the same view)",
+                                  counted=False)
+        for r in ts_rows:
+            if r["collectives"] != {"all_reduce": 1, "all_gather": 1}:
+                fail(f"a ts step issued {r['collectives']} collectives")
+        lt = [r["loss"] for r in ts_rows]
+        lr = [r["loss"] for r in ref_rows]
+        a, b = ts_state.stats.accum, ref_state.stats.accum
+        acc_err = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+        log(f"  ts vs single-device: losses {lt} vs {lr}; stats.accum "
+            f"within {acc_err:.2e} of its largest")
+        if not np.allclose(lt, lr, rtol=1e-5, atol=0) or not torch.allclose(
+                a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max())):
+            fail("the tile-sharded step differs from the single-device step")
+        # what the tile-sharded path adds on the device (its gather, the
+        # flattened gradient all_reduce and their copies)
+        busy = {}
+        for label, make in (("ts", make_ts_phase1_step),
+                            ("single", trainer.make_phase1_step)):
+            busy[label] = step_profile(torch, make(cfg, ext, tx),
+                                       load_train_state(start, dev)[0], one,
+                                       first)
+        extra = sorted(((k, v - busy["single"][1].get(k, 0.0))
+                        for k, v in busy["ts"][1].items()),
+                       key=lambda kv: -kv[1])[:5]
+        log(f"  device busy per step (profile, 3 steps): ts "
+            f"{busy['ts'][0]:.2f} ms, single-device {busy['single'][0]:.2f} "
+            f"ms ({card}); the kernels ts adds most to: " + ", ".join(
+                f"{k[:60]} +{v:.3f} ms" for k, v in extra))
+    finally:
+        dist.destroy_process_group()
+    return total
 
 
 def parity_phase(torch, dev, config_mod, render_cli, params_from_numpy, rng):

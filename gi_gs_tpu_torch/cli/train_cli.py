@@ -10,11 +10,21 @@ with the training GI settings), checkpoints and PLY.
         --model_path OUT [--device cpu] [--iterations N] \
         [--pbr_iteration M --indirect ...]
 
-Same flags as the JAX CLI (`config.add_args`). Data parallelism
-(--dp > 1) is not ported yet and raises NotImplementedError at startup,
-before any step. Writes cfg_args.json, cameras.json, eval_{it}.json,
-chkpnt{it}.pt (readable by the port's render CLI) and
-point_cloud/iteration_{it}/point_cloud.ply.
+Same flags as the JAX CLI (`config.add_args`). Writes cfg_args.json,
+cameras.json, eval_{it}.json, chkpnt{it}.pt (readable by the port's render
+CLI) and point_cloud/iteration_{it}/point_cloud.ply.
+
+Data parallelism (`--dp N`, JAX train_cli.py:131-160,218-231) runs one
+process per device under torch.distributed's launcher:
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m gi_gs_tpu_torch.cli.train_cli --dp N ... [--device cpu]
+
+`LOCAL_RANK` picks the card; the process group is NCCL on CUDA and gloo
+with --device cpu. Every rank draws the same N views from the same seeded
+rng and takes its own (`parallel.data_parallel`), so the draw needs no
+communication; only rank 0 writes files. --dp must equal the launcher's
+WORLD_SIZE; --dp 1 is the single-process path.
 """
 from __future__ import annotations
 
@@ -27,11 +37,13 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import config as config_mod
 from ..models import light as light_mod
 from ..models.gaussians import create_from_points
 from ..ops.rasterize.pipeline import bucket_cap_instances
+from ..parallel import data_parallel as dp_mod
 from ..renderer import render
 from ..scene.cameras import camera_to_json
 from ..scene.dataset import load_scene
@@ -77,6 +89,24 @@ def evaluate(cfg, state, records, light_tables=None, max_views: int = 8
             "n_views": len(psnrs)}
 
 
+def _init_data_parallel(dp: int, device: torch.device) -> torch.device:
+    """Join the process group of a `torch.distributed.run` launch of
+    `dp` processes: NCCL on the card LOCAL_RANK, gloo on the CPU. Returns
+    this rank's device."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != dp:
+        raise ValueError(
+            f"--dp {dp}: data-parallel training runs one process per device "
+            f"under `python -m torch.distributed.run --nproc_per_node {dp}`, "
+            f"but WORLD_SIZE is {world}")
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            rank=int(os.environ["RANK"]), world_size=world)
+    return device
+
+
 def main(argv=None):
     parser = ArgumentParser(description="gi_gs_tpu_torch training")
     config_mod.add_args(parser)
@@ -86,22 +116,36 @@ def main(argv=None):
     cfg = config_mod.from_args(args)
     if not cfg.model.source_path or not cfg.model.model_path:
         raise ValueError("--source_path and --model_path are required")
-    if cfg.train.dp > 1:
-        raise NotImplementedError(
-            f"--dp {cfg.train.dp}: data-parallel training is not ported yet; "
-            "it comes with the parallel slice")
     device = resolve_device(args.device)
+    dp = max(int(cfg.train.dp), 1)
+    if dp == 1:
+        return _train(cfg, device, dp)
+    device = _init_data_parallel(dp, device)
+    try:
+        return _train(cfg, device, dp)
+    finally:
+        dist.destroy_process_group()
 
-    os.makedirs(cfg.model.model_path, exist_ok=True)
-    config_mod.save_cfg(cfg, cfg.model.model_path)
+
+def _train(cfg, device: torch.device, dp: int):
+    """The training loop on `device`; with dp > 1, this rank's part of a
+    data-parallel run (the process group is open)."""
+    writer = dp == 1 or dist.get_rank() == 0
+    say = print if writer else (lambda *a, **k: None)
+    if writer:
+        os.makedirs(cfg.model.model_path, exist_ok=True)
+        config_mod.save_cfg(cfg, cfg.model.model_path)
     scene = load_scene(
         cfg.model.source_path, images=cfg.model.images,
         eval_split=cfg.model.eval, resolution=cfg.model.resolution,
         white_background=cfg.model.white_background,
         max_cameras=cfg.model.max_cameras or None)
-    with open(os.path.join(cfg.model.model_path, "cameras.json"), "w") as f:
-        json.dump([camera_to_json(i, r) for i, r in
-                   enumerate(scene.train_cameras + scene.test_cameras)], f)
+    if writer:
+        with open(os.path.join(cfg.model.model_path, "cameras.json"),
+                  "w") as f:
+            json.dump([camera_to_json(i, r) for i, r in
+                       enumerate(scene.train_cameras + scene.test_cameras)],
+                      f)
 
     params = create_from_points(scene.points, scene.colors,
                                 capacity=cfg.model.capacity,
@@ -114,7 +158,7 @@ def main(argv=None):
         state, extra = ckpt.load_train_state(cfg.train.start_checkpoint,
                                              device)
         first_iter = extra.get("iteration", 0)
-        print(f"Loaded checkpoint {cfg.train.start_checkpoint} @ {first_iter}")
+        say(f"Loaded checkpoint {cfg.train.start_checkpoint} @ {first_iter}")
     tx = build_optimizer(cfg.opt, scene.cameras_extent)
     ltx = build_light_optimizer(cfg.opt)
 
@@ -124,25 +168,35 @@ def main(argv=None):
     cap0 = min(trainer_mod.probe_cap_instances(cfg, state.params, probe_cams),
                cfg.raster.cap_instances)
     cfg.raster = dataclasses.replace(cfg.raster, cap_instances=cap0)
-    print(f"instance capacity bucket: {cap0}", flush=True)
+    say(f"instance capacity bucket: {cap0}", flush=True)
+    if dp > 1:
+        say(f"data-parallel over {dp} ranks ({dist.get_backend()}), "
+            f"{dp} views per step", flush=True)
     step_of_phase = {}
 
     def get_step(phase2: bool):
-        """The phase's step, made at its first use (the phase-2 factory
-        builds the prefilter tables once). Both read cfg.raster at every
+        """The phase's step, made at its first use (the phase-2 factories
+        build the prefilter tables once). All read cfg.raster at every
         call, so capacity growth needs no new step."""
         if phase2 not in step_of_phase:
-            step_of_phase[phase2] = (
-                trainer_mod.make_phase2_step(cfg, scene.cameras_extent, tx,
-                                             ltx, device) if phase2 else
-                trainer_mod.make_phase1_step(cfg, scene.cameras_extent, tx))
+            ext = scene.cameras_extent
+            if dp > 1:
+                step_of_phase[phase2] = (
+                    dp_mod.make_dp_phase2_step(cfg, ext, tx, ltx,
+                                               device=device) if phase2
+                    else dp_mod.make_dp_phase1_step(cfg, ext, tx))
+            else:
+                step_of_phase[phase2] = (
+                    trainer_mod.make_phase2_step(cfg, ext, tx, ltx, device)
+                    if phase2 else
+                    trainer_mod.make_phase1_step(cfg, ext, tx))
         return step_of_phase[phase2]
 
     def grow_capacity(overflow: int):
         new_cap = bucket_cap_instances(cfg.raster.cap_instances + overflow,
                                        headroom=1.3)
         cfg.raster = dataclasses.replace(cfg.raster, cap_instances=new_cap)
-        print(f"instance capacity bucket -> {new_cap} "
+        say(f"instance capacity bucket -> {new_cap} "
               f"(overflowed by {overflow})", flush=True)
 
     def grow_cap_tile(max_tile_count: int):
@@ -151,7 +205,7 @@ def main(argv=None):
         ch = cfg.raster.chunk
         new_cap = -(-int(max_tile_count * 1.3) // ch) * ch
         cfg.raster = dataclasses.replace(cfg.raster, cap_tile=new_cap)
-        print(f"tile depth capacity -> {new_cap} "
+        say(f"tile depth capacity -> {new_cap} "
               f"(max per-tile population {max_tile_count})", flush=True)
 
     train_recs = scene.train_cameras
@@ -188,10 +242,21 @@ def main(argv=None):
         else:
             bg = bg_const
         step = get_step(phase2)
-        vi = next_view()
         t_step = time.perf_counter()
-        state, aux = step(state, cams[vi], images[vi], alphas[vi], bg,
-                          iteration)
+        if dp > 1:
+            # one distinct view per rank and step (JAX's documented
+            # deviation: dp gradient samples per iteration); every view
+            # must have one resolution, as Blender/TensoIR scenes do
+            vis = [next_view() for _ in range(dp)]
+            state, aux = step(state,
+                              dp_mod.stack_cameras([cams[v] for v in vis]),
+                              torch.stack([images[v] for v in vis]),
+                              torch.stack([alphas[v] for v in vis]), bg,
+                              iteration)
+        else:
+            vi = next_view()
+            state, aux = step(state, cams[vi], images[vi], alphas[vi], bg,
+                              iteration)
         sync()
         steps.append({"iteration": iteration, "loss": float(aux.loss),
                       "seconds": time.perf_counter() - t_step,
@@ -217,7 +282,7 @@ def main(argv=None):
                     cfg.model.max_capacity and cap < cfg.model.max_capacity:
                 new_cap = min(cap * 2, cfg.model.max_capacity)
                 state = trainer_mod.grow_state(state, new_cap)
-                print(f"[{iteration}] Gaussian capacity {cap} -> {new_cap} "
+                say(f"[{iteration}] Gaussian capacity {cap} -> {new_cap} "
                       f"(alive {alive}, densify dropped {dropped})",
                       flush=True)
             now = time.time()
@@ -229,12 +294,13 @@ def main(argv=None):
                             "cap_instances": cfg.raster.cap_instances,
                             "cap_tile": cfg.raster.cap_tile,
                             "densify_dropped": dropped})
-            print(f"[{iteration}] loss {loss:.5f} l1 {float(aux.l1):.5f} "
+            say(f"[{iteration}] loss {loss:.5f} l1 {float(aux.l1):.5f} "
                   f"psnr {float(aux.psnr):.2f} alive {alive}"
                   + (f" dropped {dropped}" if dropped else "") +
                   f" {ips:.2f} it/s", flush=True)
 
-        if iteration in cfg.train.test_iterations and scene.test_cameras:
+        if writer and iteration in cfg.train.test_iterations and \
+                scene.test_cameras:
             n_eval = (len(scene.test_cameras)
                       if iteration == cfg.opt.iterations else 8)
             metrics = evaluate(
@@ -246,9 +312,9 @@ def main(argv=None):
                                    f"eval_{iteration}.json"), "w") as f:
                 json.dump(metrics, f)
 
-        if iteration in cfg.train.save_iterations or \
-                iteration in cfg.train.checkpoint_iterations or \
-                iteration == cfg.opt.iterations:
+        if writer and (iteration in cfg.train.save_iterations or
+                       iteration in cfg.train.checkpoint_iterations or
+                       iteration == cfg.opt.iterations):
             path = os.path.join(cfg.model.model_path, f"chkpnt{iteration}.pt")
             ckpt.save_state(path, state, {"iteration": iteration})
             ckpt.save_gaussians_ply(
@@ -257,7 +323,7 @@ def main(argv=None):
                              "point_cloud.ply"), state.params)
             print(f"[ITER {iteration}] saved checkpoint {path}", flush=True)
 
-    print(f"Training complete in {time.time() - t0:.1f}s")
+    say(f"Training complete in {time.time() - t0:.1f}s")
     return {"state": state, "steps": steps, "reports": reports, "cfg": cfg}
 
 

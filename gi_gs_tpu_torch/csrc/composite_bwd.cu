@@ -7,7 +7,10 @@
 //   reference's quirks (backward.cu:404-630): only colour and opacity
 //   couple into d(alpha); no gating by the 0.99 alpha clamp; the normal
 //   cotangent is zeroed on the 1-px border of the true image; final_T is a
-//   differentiable output.
+//   differentiable output. tile_base (the Pallas kernel's meta[1]): the
+//   launch's tiles are the image's tiles tile_base, tile_base + 1, ...
+//   (one shard's range in tile-sharded training); the pixel coordinates
+//   and the border test take the image tile.
 //
 // Per (instance, pixel) pair the walk replays the forward front to back
 // (the forward's done flag, early termination and n_max cut) and uses the
@@ -111,8 +114,8 @@ __global__ void __launch_bounds__(kSubPixels) composite_bwd_kernel(
     const int* __restrict__ tile_start, const int* __restrict__ tile_count,
     const float* __restrict__ accum4, const float* __restrict__ final_t,
     const float* __restrict__ g_acc, const float* __restrict__ g_t,
-    int n_max, int grid_x, int tile_w, int tile_h, int img_h, int img_w,
-    float alpha_clamp, float alpha_min, float t_min,
+    int tile_base, int n_max, int grid_x, int tile_w, int tile_h, int img_h,
+    int img_w, float alpha_clamp, float alpha_min, float t_min,
     float* __restrict__ grads) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
@@ -120,7 +123,7 @@ __global__ void __launch_bounds__(kSubPixels) composite_bwd_kernel(
   const int rank = static_cast<int>(cluster.block_rank());
   const int n_sub = static_cast<int>(cluster.num_blocks());
   const Layout L = subtile_layout(tile_w, tile_h);
-  const SubTile s = locate(L, grid_x, tile_w, tile_h);
+  const SubTile s = locate(L, grid_x, tile_w, tile_h, tile_base);
   const float2 wrows = warp_rows(L, s);
   const int P = tile_w * tile_h;
   const int lane = threadIdx.x & 31;
@@ -310,12 +313,16 @@ cudaLaunchAttribute cluster_attr(int n_sub) {
 
 }  // namespace
 
+// The rows of the instances of the num_tiles tiles tile_base, tile_base +
+// 1, ... of the image (the forward's range); the other rows of grads are
+// left as they are (the wrapper zero-fills them).
 GIGS_API int gigs_composite_bwd(
     int device, const void* table, const void* ids, const void* tile_start,
     const void* tile_count, const void* accum4, const void* final_t,
-    const void* g_acc, const void* g_t, int num_tiles, int n_max, int grid_x,
-    int tile_w, int tile_h, int img_h, int img_w, float alpha_clamp,
-    float alpha_min, float t_min, void* grads, void* stream) {
+    const void* g_acc, const void* g_t, int num_tiles, int tile_base,
+    int n_max, int grid_x, int tile_w, int tile_h, int img_h, int img_w,
+    float alpha_clamp, float alpha_min, float t_min, void* grads,
+    void* stream) {
   cudaError_t err = gigs_use_device(device);
   if (err == cudaSuccess) err = opt_in_smem(device);
   const Layout L = subtile_layout(tile_w, tile_h);
@@ -334,8 +341,9 @@ GIGS_API int gigs_composite_bwd(
       static_cast<const int*>(ids), static_cast<const int*>(tile_start),
       static_cast<const int*>(tile_count), static_cast<const float*>(accum4),
       static_cast<const float*>(final_t), static_cast<const float*>(g_acc),
-      static_cast<const float*>(g_t), n_max, grid_x, tile_w, tile_h, img_h,
-      img_w, alpha_clamp, alpha_min, t_min, static_cast<float*>(grads));
+      static_cast<const float*>(g_t), tile_base, n_max, grid_x, tile_w,
+      tile_h, img_h, img_w, alpha_clamp, alpha_min, t_min,
+      static_cast<float*>(grads));
   if (err != cudaSuccess) return static_cast<int>(err);
   GIGS_RETURN_LAUNCH_STATUS();
 }

@@ -8,8 +8,11 @@
 // bottom edges (16x64 -> four 16x16; never more than 8). The
 // rectangles come from the tile grid, so padded columns past the image are
 // composited as the plain version composites them. Python's twin of the
-// rule is composite.subtile_layout. Block b is sub-tile b % n_sub of tile
-// b / n_sub.
+// rule is composite.subtile_layout. Block b is sub-tile b % n_sub of the
+// launch's tile b / n_sub, which is tile tile_base + b / n_sub of the
+// image: a launch may composite a contiguous range of the image's tiles
+// (tile-sharded compositing), with tile_start, tile_count and the outputs
+// indexed by the range's own tiles.
 //
 // Each CTA walks its tile's sorted instances (cut to n_max in the tile's
 // order first) in batches gathered by id into shared memory with cp.async
@@ -65,7 +68,7 @@ __host__ __device__ inline int subtile_threads(const Layout& L) {
 }
 
 struct SubTile {
-  int tile;      // tile index
+  int tile;      // the launch's tile (row of tile_start, tile_count, outputs)
   int x0, y0;    // image pixel of the sub-tile's top-left pixel
   int w, h;      // the sub-tile's extent (ragged at the tile's edges)
   int lx, ly;    // this thread's pixel in the sub-tile
@@ -74,15 +77,16 @@ struct SubTile {
 };
 
 __device__ inline SubTile locate(const Layout& L, int grid_x, int tile_w,
-                                 int tile_h) {
+                                 int tile_h, int tile_base) {
   const int n_sub = L.nx * L.ny;
   SubTile s;
   s.tile = blockIdx.x / n_sub;
   const int sub = blockIdx.x - s.tile * n_sub;
   const int sy = sub / L.nx;
   const int sx = sub - sy * L.nx;
-  const int trow = s.tile / grid_x;
-  const int tcol = s.tile - trow * grid_x;
+  const int image_tile = tile_base + s.tile;
+  const int trow = image_tile / grid_x;
+  const int tcol = image_tile - trow * grid_x;
   const int tx0 = sx * L.sw;
   const int ty0 = sy * L.sh;
   s.w = min(L.sw, tile_w - tx0);

@@ -52,12 +52,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "gigs_expand": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
-    "gigs_composite_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                           _F, _P, _P, _P],
+    "gigs_composite_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                           _F, _F, _P, _P, _P],
     "gigs_composite_fwd_peak": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                 _F, _F, _P, _P, _P, _P],
     "gigs_composite_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _I, _I, _I, _F, _F, _F, _P, _P],
+                           _I, _I, _I, _I, _I, _F, _F, _F, _P, _P],
     "gigs_gi_march": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
                       _F, _F, _I, _I, _P, _P, _P],
     "gigs_gi_march_coherent": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,

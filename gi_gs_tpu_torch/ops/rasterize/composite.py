@@ -5,6 +5,14 @@ the final transmittance, with the alpha clamp 0.99, alpha_min 1/255, the
 power > 0 reject and the sticky done flag at T < 1e-4 (forward.cu:423-633),
 and its backward (backward.cu:404-630).
 
+Every function here takes a contiguous range of the image's tiles:
+`tile_start` and `tile_count` hold the range's tiles, `tile_base` is the
+image index of its first tile (0 for the whole image), and `grid` still
+fixes the image's tile columns. The tile-sharded path
+(`pipeline._composite_local_tiles`) composites one range per process; the
+outputs are the range's [T_local, ...] rows (JAX's `tile_base`,
+composite.py:62-75).
+
 `composite_fwd(..., peak=True)` also returns the argmax-weight ("peak")
 depth and view position of each pixel (forward.cu:577-583), for the
 inference-only argmax-depth render: the kernel `composite_fwd_peak` on
@@ -55,11 +63,16 @@ def composite_table(pre: Preprocessed, opacity, color, normal, albedo,
                      dim=1)
 
 
-def _tile_pixel_coords(grid, cfg: RasterConfig, device):
-    """Pixel coordinates per tile: two [T, P] f32 tensors (x, y)."""
+def _tile_pixel_coords(grid, cfg: RasterConfig, device, tile_base: int = 0,
+                       n_local: Optional[int] = None):
+    """Pixel coordinates per tile: two [T_local, P] f32 tensors (x, y) of
+    the image's tiles tile_base .. tile_base + n_local - 1 (n_local: the
+    whole grid by default)."""
     ty, tx = grid
     P = cfg.pixels_per_tile
-    t = torch.arange(ty * tx, dtype=torch.int32, device=device)
+    n = ty * tx if n_local is None else n_local
+    t = torch.arange(tile_base, tile_base + n, dtype=torch.int32,
+                     device=device)
     trow, tcol = t // tx, t % tx
     lp = torch.arange(P, dtype=torch.int32, device=device)
     ly, lx = lp // cfg.tile_w, lp % cfg.tile_w
@@ -88,13 +101,16 @@ def subtile_layout(cfg: RasterConfig) -> Tuple[int, int, int, int]:
     return sw, sh, -(-cfg.tile_w // sw), -(-cfg.tile_h // sh)
 
 
-def subtile_rects(cfg: RasterConfig, grid, device):
-    """The sub-tile rectangles of every tile in image pixels, inclusive:
-    x0, x1, y0, y1 as [T, n_sub] f64 tensors, and the sub-tile of each
-    pixel of a tile, [P] int64 (pixel p = ly * tile_w + lx)."""
+def subtile_rects(cfg: RasterConfig, grid, device, tile_base: int = 0,
+                  n_local: Optional[int] = None):
+    """The sub-tile rectangles of every tile of the range (as
+    `_tile_pixel_coords`) in image pixels, inclusive: x0, x1, y0, y1 as
+    [T_local, n_sub] f64 tensors, and the sub-tile of each pixel of a
+    tile, [P] int64 (pixel p = ly * tile_w + lx)."""
     sw, sh, nx, ny = subtile_layout(cfg)
     ty, tx = grid
-    t = torch.arange(ty * tx, device=device)
+    n = ty * tx if n_local is None else n_local
+    t = torch.arange(tile_base, tile_base + n, device=device)
     trow, tcol = t // tx, t % tx
     sub = torch.arange(nx * ny, device=device)
     tx0, ty0 = (sub % nx) * sw, (sub // nx) * sh
@@ -186,7 +202,8 @@ def _features(row: torch.Tensor) -> torch.Tensor:
 
 def _composite_fwd_plain(table, ids, tile_start, tile_count,
                          cfg: RasterConfig, grid,
-                         work: Optional[dict] = None, peak: bool = False):
+                         work: Optional[dict] = None, peak: bool = False,
+                         tile_base: int = 0):
     """Port of `_fwd_impl` (composite.py:143-173). Returns accum
     [T, 16, P] and final_T [T, P]. With `work`, also counts in
     work["pairs"] the (instance, pixel) pairs evaluated before each
@@ -201,7 +218,7 @@ def _composite_fwd_plain(table, ids, tile_start, tile_count,
     P = cfg.pixels_per_tile
     K = cfg.chunk
     cap = ids.shape[0]
-    px, py = _tile_pixel_coords(grid, cfg, dev)
+    px, py = _tile_pixel_coords(grid, cfg, dev, tile_base, T)
     max_count = int(tile_count.max()) if T else 0
     n_steps = min(-(-max_count // K), cfg.chunks_per_tile)
 
@@ -213,7 +230,7 @@ def _composite_fwd_plain(table, ids, tile_start, tile_count,
     pk = torch.zeros((T, 4, P), dtype=torch.float32, device=dev)
     if work is not None:
         work.update(pairs=0, culled_pairs=0)
-        rects = subtile_rects(cfg, grid, dev)
+        rects = subtile_rects(cfg, grid, dev, tile_base, T)
     for c in range(n_steps):
         pos = tile_start.long()[:, None] + c * K + kk[None, :]
         valid = (c * K + kk)[None, :] < tile_count.long()[:, None]  # [T, K]
@@ -261,16 +278,21 @@ def _composite_fwd_plain(table, ids, tile_start, tile_count,
 def composite_fwd(table: torch.Tensor, ids: torch.Tensor,
                   tile_start: torch.Tensor, tile_count: torch.Tensor,
                   cfg: RasterConfig, grid: Tuple[int, int],
-                  peak: bool = False):
+                  peak: bool = False, tile_base: int = 0):
     """Blend sorted instances into per-tile accumulators (replaces
-    pallas_composite.composite_fwd_pallas). Returns accum [T, 16, P] and
-    final_T [T, P]; with `peak` (the kernel `composite_fwd_peak`) also
-    peak [T, 4, P], each pixel's argmax-weight [depth, pos_view xyz]."""
+    pallas_composite.composite_fwd_pallas) for the T = tile_start.shape[0]
+    tiles from image tile `tile_base` on. Returns accum [T, 16, P] and
+    final_T [T, P]; with `peak` (the kernel `composite_fwd_peak`, whole
+    image only) also peak [T, 4, P], each pixel's argmax-weight [depth,
+    pos_view xyz]."""
+    if peak and tile_base:
+        raise ValueError("composite_fwd: the peak variant composites the "
+                         "whole image (tile_base 0)")
     if not table.is_cuda:
         return _composite_fwd_plain(table, ids, tile_start, tile_count,
-                                    cfg, grid, peak=peak)
+                                    cfg, grid, peak=peak, tile_base=tile_base)
     dev = table.device
-    T = grid[0] * grid[1]
+    T = tile_start.shape[0]
     P = cfg.pixels_per_tile
     if P > 1024:
         raise ValueError(f"composite_fwd: tile {cfg.tile_h}x{cfg.tile_w} has "
@@ -293,9 +315,10 @@ def composite_fwd(table: torch.Tensor, ids: torch.Tensor,
     name = "composite_fwd_peak" if peak else "composite_fwd"
     ck.launch(name, f"gigs_{name}", dev,
               table.data_ptr(), ids.data_ptr(), tile_start.data_ptr(),
-              tile_count.data_ptr(), T, cfg.chunks_per_tile * cfg.chunk,
-              grid[1], cfg.tile_w, cfg.tile_h, cfg.alpha_clamp,
-              cfg.alpha_min, cfg.t_min, *(o.data_ptr() for o in outs))
+              tile_count.data_ptr(), T, *(() if peak else (tile_base,)),
+              cfg.chunks_per_tile * cfg.chunk, grid[1], cfg.tile_w,
+              cfg.tile_h, cfg.alpha_clamp, cfg.alpha_min, cfg.t_min,
+              *(o.data_ptr() for o in outs))
     return outs
 
 
@@ -322,8 +345,8 @@ def _border_mask(px: torch.Tensor, py: torch.Tensor, image_hw) -> torch.Tensor:
 
 def _composite_bwd_plain(table, ids, tile_start, tile_count, accum4,
                          final_t, g_acc, g_t, cfg: RasterConfig, grid,
-                         image_hw, work: Optional[dict] = None
-                         ) -> torch.Tensor:
+                         image_hw, work: Optional[dict] = None,
+                         tile_base: int = 0) -> torch.Tensor:
     """Port of `_composite_bwd` (composite.py:193-283) up to the sorted
     instance rows: returns [cap, 21] gradient rows, 0 outside every tile's
     (possibly cap_tile-truncated) range. With `work`, also counts the
@@ -335,7 +358,7 @@ def _composite_bwd_plain(table, ids, tile_start, tile_count, accum4,
     P = cfg.pixels_per_tile
     K = cfg.chunk
     cap = ids.shape[0]
-    px, py = _tile_pixel_coords(grid, cfg, dev)
+    px, py = _tile_pixel_coords(grid, cfg, dev, tile_base, T)
     bmask = _border_mask(px, py, image_hw)[:, None, :]
     g_acc = torch.cat([g_acc[:, :4], g_acc[:, 4:7] * bmask, g_acc[:, 7:]],
                       dim=1)
@@ -350,7 +373,7 @@ def _composite_bwd_plain(table, ids, tile_start, tile_count, accum4,
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     if work is not None:
         work.update(pairs=0, culled_pairs=0, contrib=0)
-        rects = subtile_rects(cfg, grid, dev)
+        rects = subtile_rects(cfg, grid, dev, tile_base, T)
     for c in range(n_steps):
         pos = tile_start.long()[:, None] + c * K + kk[None, :]
         valid = (c * K + kk)[None, :] < tile_count.long()[:, None]  # [T, K]
@@ -408,19 +431,20 @@ def _composite_bwd_plain(table, ids, tile_start, tile_count, accum4,
 
 
 def composite_bwd(table, ids, tile_start, tile_count, accum4, final_t,
-                  g_acc, g_t, cfg: RasterConfig, grid, image_hw
-                  ) -> torch.Tensor:
+                  g_acc, g_t, cfg: RasterConfig, grid, image_hw,
+                  tile_base: int = 0) -> torch.Tensor:
     """Per-sorted-instance gradient rows [cap, 21] (replaces
     pallas_composite.composite_bwd_pallas): the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors. accum4 = accum[:, :4] and
-    final_t are the forward's outputs; g_acc [T, 16, P] and g_t [T, P]
-    the cotangents."""
+    final_t are the forward's outputs for the T = tile_start.shape[0]
+    tiles from image tile `tile_base` on; g_acc [T, 16, P] and g_t [T, P]
+    the cotangents. Rows of instances outside the range are 0."""
     if not table.is_cuda:
         return _composite_bwd_plain(table, ids, tile_start, tile_count,
                                     accum4, final_t, g_acc, g_t, cfg, grid,
-                                    image_hw)
+                                    image_hw, tile_base=tile_base)
     dev = table.device
-    T = grid[0] * grid[1]
+    T = tile_start.shape[0]
     P = cfg.pixels_per_tile
     if P > 1024 or P % 32:
         raise ValueError(f"composite_bwd: tile {cfg.tile_h}x{cfg.tile_w} has "
@@ -447,7 +471,7 @@ def composite_bwd(table, ids, tile_start, tile_count, accum4, final_t,
     ck.launch("composite_bwd", "gigs_composite_bwd", dev,
               table.data_ptr(), ids.data_ptr(), tile_start.data_ptr(),
               tile_count.data_ptr(), accum4.data_ptr(), final_t.data_ptr(),
-              g_acc.data_ptr(), g_t.data_ptr(), T,
+              g_acc.data_ptr(), g_t.data_ptr(), T, tile_base,
               cfg.chunks_per_tile * cfg.chunk, grid[1], cfg.tile_w,
               cfg.tile_h, H, W, cfg.alpha_clamp, cfg.alpha_min, cfg.t_min,
               rows.data_ptr())
@@ -476,41 +500,46 @@ def reduce_sorted_instance_grads(g_sorted: torch.Tensor, inv_perm,
 class _Composite(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, ids, tile_start, tile_count, inv_perm, offsets,
-                cfg, grid, image_hw):
+                cfg, grid, image_hw, tile_base):
         accum, final_t = composite_fwd(table, ids, tile_start, tile_count,
-                                       cfg, grid)
+                                       cfg, grid, tile_base=tile_base)
         ctx.save_for_backward(table, ids, tile_start, tile_count, inv_perm,
                               offsets, accum[:, :_COUPLED].contiguous(),
                               final_t)
-        ctx.static = (cfg, grid, image_hw)
+        ctx.static = (cfg, grid, image_hw, tile_base)
         return accum, final_t
 
     @staticmethod
     def backward(ctx, g_acc, g_t):
         (table, ids, tile_start, tile_count, inv_perm, offsets, accum4,
          final_t) = ctx.saved_tensors
-        cfg, grid, image_hw = ctx.static
+        cfg, grid, image_hw, tile_base = ctx.static
         if g_acc is None:
             g_acc = torch.zeros(accum4.shape[0], NUM_CH, accum4.shape[2],
                                 dtype=torch.float32, device=table.device)
         if g_t is None:
             g_t = torch.zeros_like(final_t)
         rows = composite_bwd(table, ids, tile_start, tile_count, accum4,
-                             final_t, g_acc, g_t, cfg, grid, image_hw)
+                             final_t, g_acc, g_t, cfg, grid, image_hw,
+                             tile_base)
         d_table = reduce_sorted_instance_grads(rows, inv_perm, offsets)
-        return (d_table,) + (None,) * 8
+        return (d_table,) + (None,) * 9
 
 
 def composite(table: torch.Tensor, binning, cfg: RasterConfig,
-              grid: Tuple[int, int], image_hw: Tuple[int, int]):
+              grid: Tuple[int, int], image_hw: Tuple[int, int],
+              tile_base: int = 0):
     """Blend the sorted instances of `binning` (a binning.Binning) into
-    per-tile accumulators: accum [T, 16, P] and final_T [T, P]. The table
-    is differentiable (the custom backward above); without autograd (no
-    grad mode, or a table that needs no gradient) this is the forward
-    alone."""
+    per-tile accumulators for the tiles of binning.tile_start, from image
+    tile `tile_base` on: accum [T, 16, P] and final_T [T, P]. The table
+    is differentiable (the custom backward above; its gradient comes from
+    these tiles alone); without autograd (no grad mode, or a table that
+    needs no gradient) this is the forward alone."""
     if not (torch.is_grad_enabled() and table.requires_grad):
         return composite_fwd(table, binning.ids, binning.tile_start,
-                             binning.tile_count, cfg, grid)
+                             binning.tile_count, cfg, grid,
+                             tile_base=tile_base)
     return _Composite.apply(table, binning.ids, binning.tile_start,
                             binning.tile_count, binning.inv_perm,
-                            binning.offsets, cfg, grid, tuple(image_hw))
+                            binning.offsets, cfg, grid, tuple(image_hw),
+                            int(tile_base))

@@ -3,18 +3,22 @@ preprocess -> bin/sort -> composite -> G-buffer images, differentiable
 with respect to the Gaussian attributes (and the `ndc_offset` hook)
 through the compositing's custom backward (`argmax_depth=False`).
 `argmax_depth=True` is the inference-only peak-depth render: one forward
-launch (`composite_fwd` with `peak=True`) on a detached table."""
+launch (`composite_fwd` with `peak=True`) on a detached table.
+`tile_group` shards the compositing over the ranks of a process group
+(`_composite_local_tiles`)."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from .binning import Binning, bin_and_sort
 from .composite import _composite_fwd_plain, composite, composite_fwd, \
     composite_table
 from .config import RasterConfig
 from .preprocess import preprocess
+from ...parallel import collectives
 from ...utils import timing
 from ...utils.math_utils import rotate_chw
 
@@ -103,6 +107,30 @@ def bucket_cap_instances(needed: int, headroom: float = 1.15,
     return -(-want // quantum) * quantum
 
 
+def _composite_local_tiles(table: torch.Tensor, b: Binning,
+                           cfg: RasterConfig, grid, image_hw, group):
+    """Tile-sharded compositing (JAX pipeline.py:148-170, a process group
+    in place of a mesh axis): the image's tiles, padded with empty ones
+    to a multiple of the group's size, are split into contiguous ranges;
+    this rank composites its range (`tile_base` = rank x range length)
+    and an all_gather reassembles every tile on every rank. The gather's
+    backward keeps this rank's tiles (`collectives.all_gather_tiles`), so
+    the table's gradient is this rank's partial: the caller sums the
+    partial parameter gradients over the group."""
+    rank, world = collectives.rank_and_size(group)
+    T = grid[0] * grid[1]
+    pad = (-T) % world
+    t_local = (T + pad) // world
+    base = rank * t_local
+    local = b._replace(
+        tile_start=F.pad(b.tile_start, (0, pad))[base:base + t_local],
+        tile_count=F.pad(b.tile_count, (0, pad))[base:base + t_local])
+    accum, final_t = composite(table, local, cfg, grid, image_hw,
+                               tile_base=base)
+    accum, final_t = collectives.all_gather_tiles((accum, final_t), group)
+    return accum[:T], final_t[:T]
+
+
 def rasterize(means3d: torch.Tensor, cov3d: torch.Tensor,
               opacity: torch.Tensor,       # [N, 1] activated
               color: torch.Tensor,         # [N, 3] per-view RGB
@@ -116,13 +144,23 @@ def rasterize(means3d: torch.Tensor, cov3d: torch.Tensor,
               cfg: RasterConfig,
               ndc_offset: Optional[torch.Tensor] = None,
               inference: bool = False,
-              argmax_depth: bool = False) -> RasterOutput:
+              argmax_depth: bool = False,
+              tile_group=None) -> RasterOutput:
     """argmax_depth is INFERENCE-ONLY (the reference has no backward for
     it, forward.cu:577-583): the table is detached and one forward launch
     gives the accumulators and the peak rows, as JAX's Pallas branch
     (pipeline.py:211-227); depth and pos_view are then the peak instance's
     where the pixel is covered (pipeline.py:254-261), and no output
-    carries a gradient."""
+    carries a gradient.
+
+    tile_group: a torch.distributed process group (or
+    `torch.distributed.group.WORLD`) to shard the compositing over by
+    contiguous tile ranges, preprocess and binning running replicated on
+    every rank (`_composite_local_tiles`); the gradients are then each
+    rank's partials, which the caller sums
+    (parallel/tile_sharded.make_ts_phase1_step). Not with argmax_depth."""
+    if argmax_depth and tile_group is not None:
+        raise ValueError("rasterize: argmax_depth is single-device only")
     grid = cfg.grid(height, width)
     dev = means3d.device
     with timing.stage("preprocess", dev):
@@ -140,6 +178,9 @@ def rasterize(means3d: torch.Tensor, cov3d: torch.Tensor,
             accum, final_t, peak = composite_fwd(
                 table.detach(), b.ids, b.tile_start, b.tile_count, cfg, grid,
                 peak=True)
+        elif tile_group is not None:
+            accum, final_t = _composite_local_tiles(
+                table, b, cfg, grid, (height, width), tile_group)
         else:
             accum, final_t = composite(table, b, cfg, grid, (height, width))
 

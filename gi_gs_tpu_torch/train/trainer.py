@@ -137,13 +137,15 @@ def _masked_l1(a, b, mask):
 
 def phase1_view_loss(cfg: Config, params: GaussianParams,
                      ndc_zeros: Optional[torch.Tensor], camera: Camera,
-                     image, alpha, bg):
+                     image, alpha, bg, tile_group=None):
     """Per-view phase-1 loss (train.py:309-327): photometric L1 + D-SSIM,
     world-frame normal consistency at weight 1 (train.py:324; upstream
     GS-IR semantics, as the JAX trainer) and normal TV. Returns (loss,
-    aux)."""
+    aux). tile_group: the compositing sharded over that process group
+    (the tile-sharded step; gradients are then per-rank partials)."""
     res = render(camera, params, bg, cfg.raster, cfg.gi, derive_normal=True,
-                 compute_occlusion=False, ndc_offset=ndc_zeros)
+                 compute_occlusion=False, ndc_offset=ndc_zeros,
+                 tile_group=tile_group)
     with timing.stage("loss", params.device):
         gt = _gt_image(image, alpha, bg)
         l1 = image_utils.l1_loss(res["render"], gt)
@@ -163,16 +165,17 @@ def phase1_view_loss(cfg: Config, params: GaussianParams,
 
 
 def loss_and_grads(cfg: Config, params: GaussianParams, camera: Camera,
-                   image, alpha, bg):
+                   image, alpha, bg, tile_group=None):
     """Phase-1 loss of one view and its gradients: (loss, aux, grads of
-    the trainable fields, ndc_grad [C, 2])."""
+    the trainable fields, ndc_grad [C, 2]); with `tile_group`, this
+    rank's partial gradients of the tile-sharded loss."""
     view = {f: t.detach().requires_grad_(True)
             for f, t in trainable_view(params).items()}
     ndc = torch.zeros((params.capacity, 2), dtype=torch.float32,
                       device=params.device, requires_grad=True)
     with torch.enable_grad():
         loss, aux = phase1_view_loss(cfg, params.replace(**view), ndc,
-                                     camera, image, alpha, bg)
+                                     camera, image, alpha, bg, tile_group)
         with timing.stage("backward", params.device):
             leaves = list(view.values()) + [ndc]
             gs = torch.autograd.grad(loss, leaves, allow_unused=True)

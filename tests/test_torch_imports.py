@@ -34,6 +34,11 @@ def test_port_imports_without_jax_or_reference_package():
             "gi_gs_tpu_torch.cli.normal_eval_cli",
             "gi_gs_tpu_torch.cli.collect_cli",
             "gi_gs_tpu_torch.utils.lpips"} <= set(mods)
+    assert {"gi_gs_tpu_torch.parallel.collectives",
+            "gi_gs_tpu_torch.parallel.data_parallel",
+            "gi_gs_tpu_torch.parallel.tile_sharded",
+            "gi_gs_tpu_torch.ops.bsdf", "gi_gs_tpu_torch.utils.profiling",
+            "gi_gs_tpu_torch.cli.network_gui"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'gi_gs_tpu'):\n"

@@ -316,6 +316,100 @@ def test_composite_grazing_rows_match_plain(dev, seed):
                                    atol=2e-5 * scale)
 
 
+def _check_tile_ranges(table, ids, start, count, cfg, grid, hw, g_acc, g_t,
+                       n_ranges=3, bwd_rows=None):
+    """The kernels over `n_ranges` contiguous tile ranges (`tile_base`,
+    the tiles padded with empty ones to a multiple of n_ranges) against
+    the whole-image launch and against their plain versions: the forward
+    ranges concatenated bit-equal to the whole launch; the backward rows
+    summed over the ranges bit-equal to the whole launch's (each instance
+    row belongs to one tile); each range against the plain version at the
+    tolerances of test_composite_bwd_matches_plain (the backward on the
+    rows `bwd_rows` selects, default all)."""
+    T = grid[0] * grid[1]
+    acc, ft = composite.composite_fwd(table, ids, start, count, cfg, grid)
+    rows = composite.composite_bwd(table, ids, start, count,
+                                   acc[:, :4].contiguous(), ft, g_acc, g_t,
+                                   cfg, grid, hw)
+    t_local = -(-T // n_ranges)
+    pad = n_ranges * t_local - T
+    padded = lambda x: torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+    start_p, count_p, g_acc_p, g_t_p = map(padded, (start, count, g_acc,
+                                                    g_t))
+    accs, fts, row_sum = [], [], torch.zeros_like(rows)
+    before = dict(ck.launches)
+    for r in range(n_ranges):
+        base = r * t_local
+        sl = slice(base, base + t_local)
+        fargs = (table, ids, start_p[sl], count_p[sl], cfg, grid)
+        a, f = composite.composite_fwd(*fargs, tile_base=base)
+        pa, pt = composite._composite_fwd_plain(*fargs, tile_base=base)
+        torch.testing.assert_close(a, pa, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(f, pt, rtol=1e-5, atol=1e-6)
+        bargs = (table, ids, start_p[sl], count_p[sl], a[:, :4].contiguous(),
+                 f, g_acc_p[sl], g_t_p[sl], cfg, grid, hw)
+        k = composite.composite_bwd(*bargs, tile_base=base)
+        p = composite._composite_bwd_plain(*bargs, tile_base=base)
+        sel = slice(None) if bwd_rows is None else bwd_rows
+        scale = float(p[sel].abs().amax(dim=0).max()) + 1e-3
+        torch.testing.assert_close(k[sel], p[sel], rtol=2e-4,
+                                   atol=2e-5 * scale)
+        accs.append(a)
+        fts.append(f)
+        row_sum = row_sum + k
+    assert ck.launches["composite_fwd"] == before["composite_fwd"] + n_ranges
+    assert ck.launches["composite_bwd"] == before["composite_bwd"] + n_ranges
+    assert torch.equal(torch.cat(accs)[:T], acc)
+    assert torch.equal(torch.cat(fts)[:T], ft)
+    assert float(rows.abs().max()) > 0
+    assert torch.equal(row_sum, rows)
+    return pad
+
+
+def test_composite_tile_ranges_match_whole_launch(dev):
+    """A 200x120 scene (an 8 x 4 grid: 32 tiles, padded to 33) as 3 tile
+    ranges."""
+    cfg = RasterConfig(cap_instances=1 << 17)
+    b, args, bargs, _, _ = _composite_case(dev, cfg, 200, 120, 5)
+    table, ids, start, count, _, grid = args
+    assert _check_tile_ranges(table, ids, start, count, cfg, grid,
+                              bargs[-1], bargs[6], bargs[7]) == 1
+
+
+def test_composite_tile_ranges_grazing_rows(dev):
+    """The grazing rows of test_composite_grazing_rows_match_plain (136x32,
+    a 2 x 3 grid of 16x64 tiles, 384 rows each, chunk 1) as 3 tile
+    ranges: the cull of a range's sub-tiles takes their image position
+    from tile_base. The backward against the plain version on the rows
+    the plain backward leaves finite with opacity below 0.9 (that test's
+    docstring says why)."""
+    cfg = RasterConfig(cap_instances=1 << 14, cap_tile=512, chunk=1)
+    h, w, n = 32, 136, 384
+    grid = cfg.grid(h, w)
+    T = grid[0] * grid[1]
+    x0, x1, y0, y1, _ = composite.subtile_rects(cfg, grid, "cpu")
+    rects = torch.stack([x0, x1, y0, y1], -1).numpy().astype(np.int64)
+    rng = np.random.RandomState(2)
+    table = torch.cat([cull_rows(rng, n, rects[t], graze=True)[
+        rng.permutation(n)] for t in range(T)]).to(dev)
+    ids = torch.arange(T * n, dtype=torch.int32, device=dev)
+    start = torch.arange(T, dtype=torch.int32, device=dev) * n
+    count = torch.full((T,), n, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    g_acc = torch.randn((T, 16, cfg.pixels_per_tile), device=dev,
+                        generator=g)
+    g_t = torch.randn((T, cfg.pixels_per_tile), device=dev, generator=g)
+    plain = composite._composite_bwd_plain(
+        table, ids, start, count, *(lambda a, f: (a[:, :4].contiguous(), f))(
+            *composite._composite_fwd_plain(table, ids, start, count, cfg,
+                                            grid)),
+        g_acc, g_t, cfg, grid, (h, w))
+    low = plain.isfinite().all(dim=1) & (table[:, 5] < 0.9)
+    assert float(low.float().mean()) > 0.5
+    _check_tile_ranges(table, ids, start, count, cfg, grid, (h, w), g_acc,
+                       g_t, bwd_rows=low)
+
+
 def test_composite_bwd_is_deterministic(dev):
     """No atomics: two launches on one input give bit-identical rows."""
     cfg = RasterConfig(cap_instances=1 << 17)

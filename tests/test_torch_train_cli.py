@@ -2,10 +2,15 @@
 (tests/test_io.make_blender_dataset) trains 8 phase-1 iterations with a
 densification and an opacity reset, writes its checkpoint, eval JSON and
 PLY, and the port's render CLI renders that checkpoint; a two-phase run
-switches to deferred-PBR training past --pbr_iteration. Unported settings
-fail at startup. Both packages read the small shared env-BRDF LUT."""
+switches to deferred-PBR training past --pbr_iteration; `--dp 2 --device
+cpu` trains under torch.distributed.run with 2 gloo ranks, rank 0 alone
+writing. --dp different from the launcher's world size fails at startup.
+Both packages read the small shared env-BRDF LUT."""
+import glob
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -92,8 +97,53 @@ def test_train_cli_phase2_after_phase1(tmp_path):
     assert float(loaded.light_opt_state["cubemap"]["nu"].abs().max()) > 0
 
 
-def test_train_cli_refuses_unported_settings(tmp_path):
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+def test_train_cli_refuses_unported_settings(tmp_path, monkeypatch):
+    """--dp 2 outside a 2-process launch (world size 1) raises before
+    anything is written."""
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(ValueError, match="data-parallel.*WORLD_SIZE is 1"):
         train_cli.main(["--source_path", str(tmp_path), "--model_path",
                         str(tmp_path / "m"), "--device", "cpu", "--dp", "2"])
     assert not os.path.exists(tmp_path / "m")
+
+
+def test_train_cli_data_parallel_two_ranks(tmp_path):
+    """`python -m torch.distributed.run --standalone --nproc_per_node 2`
+    (a free rendezvous port) of `train_cli --dp 2 --device cpu`, 4
+    iterations on the 32x32 scene with a densification: both ranks train
+    2 views a step; only rank 0 writes (its log has the checkpoint line,
+    rank 1's none, and rank 1 reports no step) and the checkpoint holds 4
+    steps of Adam."""
+    data, model = str(tmp_path / "scene"), str(tmp_path / "model")
+    logs = str(tmp_path / "logs")
+    make_blender_dataset(data, n_frames=2, size=32)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "--log_dir", logs, "--redirects", "3",
+           "-m", "gi_gs_tpu_torch.cli.train_cli", "--source_path", data,
+           "--model_path", model, "--eval", "--dp", "2", "--device", "cpu",
+           "--iterations", "4", "--test_iterations", "4",
+           "--save_iterations", "4", "--densify_from_iter", "1",
+           "--densification_interval", "2", *SMALL]
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+    res = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                         text=True, timeout=240)
+    assert res.returncode == 0, res.stderr[-4000:]
+    out = {}
+    for path in glob.glob(os.path.join(logs, "**", "stdout.log"),
+                          recursive=True):
+        with open(path) as f:
+            out[int(os.path.basename(os.path.dirname(path)))] = f.read()
+    assert set(out) == {0, 1}, out
+    assert "data-parallel over 2 ranks (gloo)" in out[0]
+    assert "saved checkpoint" in out[0] and "eval:" in out[0]
+    for line in ("saved checkpoint", "eval:", "] loss "):
+        assert line not in out[1], out[1]
+    for name in ("chkpnt4.pt", "eval_4.json", "cameras.json",
+                 "cfg_args.json"):
+        assert os.path.exists(os.path.join(model, name)), name
+    loaded, extra = ckpt.load_train_state(os.path.join(model, "chkpnt4.pt"),
+                                          "cpu")
+    assert extra["iteration"] == 4
+    assert all(st["count"] == 4 for st in loaded.opt_state.values())
+    assert bool(torch.isfinite(loaded.params.xyz).all())

@@ -200,9 +200,9 @@ def main() -> None:
             def fwd():
                 err = lib.gigs_composite_fwd(
                     0, table.data_ptr(), b.ids.data_ptr(), ts.data_ptr(),
-                    tc.data_ptr(), T, n_max, grid[1], rc.tile_w, rc.tile_h,
-                    rc.alpha_clamp, rc.alpha_min, rc.t_min, acc.data_ptr(),
-                    fin.data_ptr(), stream())
+                    tc.data_ptr(), T, 0, n_max, grid[1], rc.tile_w,
+                    rc.tile_h, rc.alpha_clamp, rc.alpha_min, rc.t_min,
+                    acc.data_ptr(), fin.data_ptr(), stream())
                 assert err == 0, err
 
             fwd_ms = cs.cuda_ms(fwd, args.reps)
@@ -212,7 +212,7 @@ def main() -> None:
                 err = lib.gigs_composite_bwd(
                     0, table.data_ptr(), b.ids.data_ptr(), ts.data_ptr(),
                     tc.data_ptr(), acc4.data_ptr(), fin.data_ptr(),
-                    g_acc.data_ptr(), g_t.data_ptr(), T, n_max, grid[1],
+                    g_acc.data_ptr(), g_t.data_ptr(), T, 0, n_max, grid[1],
                     rc.tile_w, rc.tile_h, H, W, rc.alpha_clamp, rc.alpha_min,
                     rc.t_min, rows.data_ptr(), stream())
                 assert err == 0, err
