@@ -1,7 +1,8 @@
-"""Device selection for the port's entry points, and constant tables kept
-on the device."""
+"""Device selection for the port's entry points, constant tables kept on
+the device, and the card's name and power limit."""
 from __future__ import annotations
 
+import subprocess
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
@@ -35,3 +36,25 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "gi_gs_tpu_torch: no CUDA device is available; pass "
             "device='cpu' (or --device cpu) to run on the CPU")
     return dev
+
+
+def card_line(device: Union[str, torch.device]) -> str:
+    """The card's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them (for
+    a CUDA device), or "cpu"; a result is read beside this line, since a
+    card set below its full power limit runs slower under load."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        res = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", f"--id={idx}"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"{torch.cuda.get_device_name(idx)}, power limit not read ({e})"
+    if res.returncode != 0:
+        return (f"{torch.cuda.get_device_name(idx)}, power limit not read "
+                f"({res.stderr.strip()})")
+    return res.stdout.strip()

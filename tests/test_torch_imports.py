@@ -39,6 +39,8 @@ def test_port_imports_without_jax_or_reference_package():
             "gi_gs_tpu_torch.parallel.tile_sharded",
             "gi_gs_tpu_torch.ops.bsdf", "gi_gs_tpu_torch.utils.profiling",
             "gi_gs_tpu_torch.cli.network_gui"} <= set(mods)
+    assert {"gi_gs_tpu_torch.bench",
+            "gi_gs_tpu_torch.ops.rasterize.reference"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'gi_gs_tpu'):\n"

@@ -1,6 +1,7 @@
 """The eight CUDA kernels against their plain PyTorch versions on the card
 (csrc/*.cu, built at first use), the coherent march's keys against the
-plain offset table included. Marked `cuda`: they skip without a GPU.
+plain offset table included, and the tiled rasterizer against the
+brute-force oracle. Marked `cuda`: they skip without a GPU.
 On a machine with one (without JAX, so skip the tests' conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py"""
 import numpy as np
@@ -109,6 +110,46 @@ def test_composite_matches_plain(dev):
                                             b.tile_count, cfg, grid)
     torch.testing.assert_close(ka, pa, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(kt, pt, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("tile_h,tile_w", [(16, 64), (8, 32)])
+def test_tiled_rasterize_matches_bruteforce_oracle(dev, tile_h, tile_w):
+    """The tiled rasterizer on the card (`expand`, `composite_fwd`) against
+    the brute-force oracle on the card, at tests/test_rasterize.py's
+    tolerances (rtol 1e-4, atol 1e-5; final T rtol 1e-5, atol 1e-6)."""
+    from gi_gs_tpu_torch.ops.rasterize.pipeline import rasterize
+    from gi_gs_tpu_torch.ops.rasterize.reference import rasterize_bruteforce
+    rng = np.random.RandomState(3)
+    n, w, h = 1500, 96, 64
+    cam = make_camera(np.eye(3), np.zeros(3), 1.0, 0.7, w, h, device=dev)
+    z = rng.uniform(1, 5, (n, 1))
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    xyz = t(np.concatenate([rng.uniform(-0.45, 0.45, (n, 2)) * z, z], 1))
+    q = rng.normal(size=(n, 4))
+    cov = build_covariance_3d(t(np.exp(rng.uniform(-3.5, -2.0, (n, 3)))),
+                              t(q / np.linalg.norm(q, axis=1, keepdims=True)))
+    op = t(rng.uniform(0.05, 0.95, (n, 1)))
+    f = t(rng.uniform(0, 1, (n, 11)))
+    cfg = RasterConfig(tile_h=tile_h, tile_w=tile_w, cap_instances=1 << 16)
+    args = (cam.w2c, cam.full_proj, cam.tanfovx, cam.tanfovy)
+    before = dict(ck.launches)
+    out = rasterize(xyz, cov, op, f[:, 0:3], f[:, 3:6], f[:, 6:9],
+                    f[:, 9:10], f[:, 10:11], *args, h, w,
+                    torch.zeros(3, device=dev), cfg)
+    assert ck.launches["composite_fwd"] == before["composite_fwd"] + 1
+    assert ck.launches["expand"] == before["expand"] + 1
+    pre = preprocess(xyz, cov, *args, w, h, cfg)
+    feats = torch.cat([f[:, 0:3], torch.ones_like(f[:, 9:10]), f[:, 3:9],
+                       f[:, 9:11], pre.depth[:, None], pre.pos_view], 1)
+    acc, final_t = rasterize_bruteforce(xyz, cov, op, feats, *args, h, w,
+                                        cfg)
+    assert 0.0 < float(final_t.min()) < 0.5
+    torch.testing.assert_close(out.final_t[0], final_t, rtol=1e-5, atol=1e-6)
+    for got, want in ((out.color, acc[0:3]), (out.opacity[0], acc[3]),
+                      (out.normal, acc[4:7]), (out.albedo, acc[7:10]),
+                      (out.roughness[0], acc[10]),
+                      (out.metallic[0], acc[11])):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
 def test_composite_fwd_peak_matches_plain(dev):
