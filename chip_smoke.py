@@ -108,6 +108,19 @@ Phases (any failure exits non-zero):
                2^18): its JSON line printed and checked (finite loss,
                all 8 stages timed, the exact march within 1e-6 of its
                plain version, 7 kernels launched in that process)
+ 17. quality  the quality gate's reduced configs on the card
+               (`gi_gs_tpu_torch.quality_gate`; tests/test_quality.py's
+               sizes and bars): phase 1 at 64 px, 1200 steps on 16 ring
+               views from a random cloud of 2000 points (test PSNR > 19
+               dB), phase 2 at 64 px, 200 steps on 8 views, light 64
+               (albedo PSNR > 18 dB, irradiance correlation > 0.75);
+               steps/s of each, launch counts set to 0 just before: every
+               training kernel must launch
+ 18. dryrun   `dryrun_multichip(1)` (gi_gs_tpu_torch/dryrun.py) over a
+               world-size-1 NCCL group: its five legs (DP phase 1 with a
+               densification, DP phase 2, tile-sharded compositing, two
+               tile-sharded steps, grow_state mid-run), each checked for
+               its change and for bit-equal ranks
 Phase 4 also holds composite_fwd_peak against its plain version on view 0
 (accumulator rows bit-equal to composite_fwd's, <= 0.1% of covered pixels
 with another peak), and phase 6 the argmax render on CUDA against CPU.
@@ -929,6 +942,12 @@ def main() -> None:
     oracle_phase(torch, dev, ck, np.random.RandomState(args.seed + 6))
     _, bench_launches = bench_phase(torch)
 
+    # -- 17. the quality gate's reduced configs ------------------------------
+    gate_launches = quality_phase(torch, dev, ck, card)
+
+    # -- 18. the multi-rank dry run at world size 1 ---------------------------
+    dryrun_launches = dryrun_phase(torch, dev, ck)
+
     # each kernel's launches from the run of the path it serves: the render
     # CLI for the serving kernels, the phase-1 train CLI for composite_bwd,
     # the phase-2 train CLI for gi_march_coherent and patch_bwd, the argmax
@@ -944,6 +963,8 @@ def main() -> None:
         e["launches_in_colmap_training"] = colmap_launches[e["name"]]
         e["launches_in_parallel_steps"] = par_launches[e["name"]]
         e["launches_in_bench"] = bench_launches[e["name"]]
+        e["launches_in_quality_gate"] = gate_launches[e["name"]]
+        e["launches_in_dryrun"] = dryrun_launches[e["name"]]
         if e["name"] in ranges:
             e["tile_ranges"] = ranges[e["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2260,6 +2281,70 @@ def bench_phase(torch):
     if missing:
         fail(f"the bench launched no {missing}")
     return result, launches
+
+
+# the kernels of both training phases, which the reduced gates must launch
+GATE_KERNELS = ("expand", "composite_fwd", "composite_bwd",
+                "gi_march_coherent", "patch_fwd", "patch_bwd")
+
+
+def quality_phase(torch, dev, ck, card):
+    """Phase 17: tests/test_quality.py's reduced gates on the card, under
+    its bars, with the launches of the two runs. Returns the launches."""
+    from gi_gs_tpu_torch import quality_gate as qg
+    torch.cuda.empty_cache()
+    ck.reset_launches()
+    r1 = qg.run_phase1_gate(size=64, iters=1200, n_train=16, n_test=2,
+                            capacity=4096, max_capacity=16384, n_gauss=500,
+                            n_init=2000, device=dev)
+    r2 = qg.run_phase2_gate(size=64, iters=200, n_train=8, n_test=2,
+                            capacity=2048, n_gauss=500, light_res=64,
+                            device=dev)
+    launches = dict(ck.launches)
+    log(f"[quality] phase 1 (64 px, 1200 steps): test PSNR "
+        f"{r1['test_psnr']:.4f} dB (bar 19), alive {r1['alive']} of "
+        f"{r1['capacity']}, {r1['steps_per_s']:.2f} steps/s, "
+        f"{r1['seconds']:.1f} s; phase 2 (64 px, 200 steps, light 64): "
+        f"albedo PSNR {r2['albedo_psnr']:.4f} dB (bar 18), irradiance "
+        f"correlation {r2['env_irradiance_corr']:.4f} (bar 0.75), env "
+        f"correlation {r2['env_corr']:.4f}, {r2['steps_per_s']:.2f} "
+        f"steps/s, {r2['seconds']:.1f} s ({card}); launches {launches}")
+    log("  phase-1 trajectory " + json.dumps(r1["trajectory"]))
+    if not r1["test_psnr"] > 19.0:
+        fail(f"the reduced phase-1 gate missed its bar: {r1}")
+    if not (r2["albedo_psnr"] > 18.0 and r2["env_irradiance_corr"] > 0.75):
+        fail(f"the reduced phase-2 gate missed its bars: {r2}")
+    missing = [k for k in GATE_KERNELS if not launches[k]]
+    if missing:
+        fail(f"the quality gate launched no {missing}")
+    return launches
+
+
+def dryrun_phase(torch, dev, ck):
+    """Phase 18: dryrun_multichip(1) over a world-size-1 NCCL group (the
+    machine has one card). Returns the kernel launches of the run."""
+    import torch.distributed as dist
+    from gi_gs_tpu_torch import dryrun
+    try:
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=120))
+    except (RuntimeError, ValueError) as e:
+        fail(f"NCCL did not come up at world size 1: {e}")
+    ck.reset_launches()
+    t0 = time.time()
+    try:
+        res = dryrun.dryrun_multichip(1, device=dev)
+    except AssertionError as e:
+        fail(f"the dry run failed: {e}")
+    finally:
+        dist.destroy_process_group()
+    launches = dict(ck.launches)
+    log(f"[dryrun] dryrun_multichip(1) over NCCL in {time.time() - t0:.1f} "
+        f"s: densify {res['phase1_dp']['alive']}, cubemap change "
+        f"{res['phase2_dp']['cubemap_change']:.4f}, multihost capacity "
+        f"{res['multihost']['capacity']}; launches {launches}")
+    return launches
 
 
 if __name__ == "__main__":

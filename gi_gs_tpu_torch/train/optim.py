@@ -96,10 +96,13 @@ class GroupAdam:
 
 
 def _scaled(lr: LR, scale_fn) -> LR:
+    """lr(step) * scale_fn(step), the product rounded to f32 as optax
+    computes it (its schedules run in f32)."""
     if scale_fn is None:
         return lr
     base = lr if callable(lr) else (lambda step, v=lr: v)
-    return lambda step: base(step) * scale_fn(step)
+    return lambda step: float(np.float32(base(step)) *
+                              np.float32(scale_fn(step)))
 
 
 def build_optimizer(opt: OptimizationConfig, spatial_lr_scale: float,

@@ -137,12 +137,14 @@ def _masked_l1(a, b, mask):
 
 def phase1_view_loss(cfg: Config, params: GaussianParams,
                      ndc_zeros: Optional[torch.Tensor], camera: Camera,
-                     image, alpha, bg, tile_group=None):
+                     image, alpha, bg, tile_group=None,
+                     normal_weight: float = 1.0):
     """Per-view phase-1 loss (train.py:309-327): photometric L1 + D-SSIM,
-    world-frame normal consistency at weight 1 (train.py:324; upstream
-    GS-IR semantics, as the JAX trainer) and normal TV. Returns (loss,
-    aux). tile_group: the compositing sharded over that process group
-    (the tile-sharded step; gradients are then per-rank partials)."""
+    world-frame normal consistency at `normal_weight` (the reference's
+    hard-coded 1.0, train.py:324; upstream GS-IR semantics, as the JAX
+    trainer) and normal TV. Returns (loss, aux). tile_group: the
+    compositing sharded over that process group (the tile-sharded step;
+    gradients are then per-rank partials)."""
     res = render(camera, params, bg, cfg.raster, cfg.gi, derive_normal=True,
                  compute_occlusion=False, ndc_offset=ndc_zeros,
                  tile_group=tile_group)
@@ -154,7 +156,7 @@ def phase1_view_loss(cfg: Config, params: GaussianParams,
         normal_loss = _masked_l1(res["normal_map_world"],
                                  res["normal_map_from_depth"],
                                  res["normal_from_depth_mask"])
-        loss = loss + normal_loss
+        loss = loss + normal_weight * normal_loss
         loss = loss + cfg.train.normal_tv_weight * losses.tv_loss(
             gt, res["normal_map"], pad=1, step=1)
     aux = {"l1": l1, "normal_loss": normal_loss, "render": res["render"],
@@ -165,7 +167,8 @@ def phase1_view_loss(cfg: Config, params: GaussianParams,
 
 
 def loss_and_grads(cfg: Config, params: GaussianParams, camera: Camera,
-                   image, alpha, bg, tile_group=None):
+                   image, alpha, bg, tile_group=None,
+                   normal_weight: float = 1.0):
     """Phase-1 loss of one view and its gradients: (loss, aux, grads of
     the trainable fields, ndc_grad [C, 2]); with `tile_group`, this
     rank's partial gradients of the tile-sharded loss."""
@@ -175,7 +178,8 @@ def loss_and_grads(cfg: Config, params: GaussianParams, camera: Camera,
                       device=params.device, requires_grad=True)
     with torch.enable_grad():
         loss, aux = phase1_view_loss(cfg, params.replace(**view), ndc,
-                                     camera, image, alpha, bg, tile_group)
+                                     camera, image, alpha, bg, tile_group,
+                                     normal_weight)
         with timing.stage("backward", params.device):
             leaves = list(view.values()) + [ndc]
             gs = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -222,14 +226,18 @@ def _apply_schedule_updates(cfg: Config, state: TrainState,
                          stats=stats), dropped
 
 
-def make_phase1_step(cfg: Config, cameras_extent: float, tx: GroupAdam):
+def make_phase1_step(cfg: Config, cameras_extent: float, tx: GroupAdam,
+                     normal_weight: float = 1.0):
     """Returns step(state, camera, image, alpha, bg, iteration) ->
-    (state, StepAux)."""
+    (state, StepAux). normal_weight: the weight of the normal-consistency
+    loss, the reference's hard-coded 1.0 (train.py:324); the quality gate
+    passes it through."""
 
     def step(state: TrainState, camera: Camera, image, alpha, bg,
              iteration: int):
         loss, aux, grads, ndc_grad = loss_and_grads(
-            cfg, state.params, camera, image, alpha, bg)
+            cfg, state.params, camera, image, alpha, bg,
+            normal_weight=normal_weight)
         new_state, dropped = _apply_schedule_updates(
             cfg, state, grads, ndc_grad, aux, int(iteration), tx,
             cameras_extent)

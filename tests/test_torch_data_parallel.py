@@ -67,7 +67,13 @@ def _cams():
     return out
 
 
-def _scene(phase):
+# densification on: from iteration 0 every 2 steps at a threshold every
+# visible Gaussian passes, so step 2 densifies (the JAX dry run's setting)
+OPT_DENSIFY = dict(densify_from_iter=0, densification_interval=2,
+                   densify_until_iter=10, densify_grad_threshold=1e-8)
+
+
+def _scene(phase, opt=OPT):
     rng = np.random.RandomState(0)
     pts = rng.uniform(-0.5, 0.5, (N, 3)).astype(np.float32)
     pts[:, 2] += 2.5
@@ -79,19 +85,20 @@ def _scene(phase):
         0.25, 0.75, (6, 16, 16, 3)).astype(np.float32)
     return dict(
         params=params,
-        cfg=workers.port_config(SIZES, OPT, TRAIN[phase], GI, CAP),
+        cfg=workers.port_config(SIZES, opt, TRAIN[phase], GI, CAP),
         fields={k: np.asarray(getattr(params, k)) for k in FIELDS},
         sh=params.active_sh_degree, cams=_cams(), images=images,
         alphas=np.ones((VIEWS, 1, H, W), np.float32),
         bg=np.zeros(3, np.float32), cubemap=cubemap, iterations=[1],
-        phase=phase)
+        phase=phase, opt=opt)
 
 
 def _jax_step(p):
-    """One step of JAX's DP step of p's phase on a 2-device mesh."""
+    """JAX's DP step of p's phase on a 2-device mesh at p's iterations:
+    (final state, last aux)."""
     cfg = JaxConfig()
     cfg.model = JaxModel(capacity=CAP)
-    cfg.opt = JaxOpt(**OPT)
+    cfg.opt = JaxOpt(**p["opt"])
     cfg.train = JaxTrain(**TRAIN[p["phase"]])
     cfg.raster = JaxRasterConfig(**SIZES, use_pallas=False,
                                  expand_backend="xla")
@@ -109,9 +116,11 @@ def _jax_step(p):
         light_opt_state=jax_light_opt(cfg.opt).init(
             jnp.asarray(p["cubemap"])))
     cams = stack_cameras([jax_make_camera(**c) for c in p["cams"]])
-    return step(state, cams, jnp.asarray(p["images"]),
-                jnp.asarray(p["alphas"]), jnp.asarray(p["bg"]),
-                jnp.int32(1))
+    for it in p["iterations"]:
+        state, aux = step(state, cams, jnp.asarray(p["images"]),
+                          jnp.asarray(p["alphas"]), jnp.asarray(p["bg"]),
+                          jnp.int32(it))
+    return state, aux
 
 
 def _near(got, want, lr, alive=None, frac=0.01):
@@ -189,3 +198,26 @@ def test_dp_world_one_is_the_mean_over_views(tmp_path):
                       optim.trainable_view(state.params))
     _near(res["after"][0]["xyz"], view["xyz"].numpy(), 0.00016,
           p["fields"]["alive"], frac=0.02)
+
+
+def test_dp_phase1_densify_two_ranks_matches_jax(tmp_path):
+    """Two steps with the densification firing at step 2: the same live
+    slots as JAX's mesh step (which Gaussians clone or split, and where
+    they go, does not depend on the densify noise), the same losses, and
+    the two ranks bit-equal through the densify surgery (the noise comes
+    from the state's generator, seeded alike on every rank)."""
+    p = _scene(1, OPT_DENSIFY)
+    p["iterations"] = [1, 2]
+    js, jaux = _jax_step(p)
+    ranks = workers.run_ranks("dp_steps", p, tmp_path)
+    got = ranks[0]["after"][-1]
+    want_alive = np.asarray(js.params.alive)
+    assert want_alive.sum() > p["fields"]["alive"].sum()
+    np.testing.assert_array_equal(got["alive"], want_alive)
+    np.testing.assert_allclose(ranks[0]["loss"][-1], float(jaux.loss),
+                               rtol=1e-5)
+    # slots that stayed where they were (not densify targets) carry the
+    # optimizer's update, as in the one-step test
+    kept = p["fields"]["alive"] & want_alive
+    _near(got["xyz"][kept], np.asarray(js.params.xyz)[kept], 0.00016)
+    _ranks_equal(ranks)

@@ -41,6 +41,8 @@ def test_port_imports_without_jax_or_reference_package():
             "gi_gs_tpu_torch.cli.network_gui"} <= set(mods)
     assert {"gi_gs_tpu_torch.bench",
             "gi_gs_tpu_torch.ops.rasterize.reference"} <= set(mods)
+    assert {"gi_gs_tpu_torch.quality_gate",
+            "gi_gs_tpu_torch.dryrun"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'gi_gs_tpu'):\n"
@@ -95,6 +97,15 @@ def test_cuda_default_entry_points_raise_without_gpu(tmp_path):
         params_from_numpy(fields, 0, 3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_camera(np.eye(3), np.zeros(3), 1.0, 1.0, 8, 8)
+    from gi_gs_tpu_torch import dryrun, quality_gate
+    out = tmp_path / "q.json"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quality_gate.main(["--gates", "phase1", "--out", str(out)])
+    assert not out.exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quality_gate.run_phase2_gate(size=16, iters=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main([])
     # asking for the CPU works
     cam = make_camera(np.eye(3), np.zeros(3), 1.0, 1.0, 8, 8, device="cpu")
     assert cam.w2c.device.type == "cpu"

@@ -457,3 +457,51 @@ def test_full_step_from_carried_state(jax_grad_fn):
         assert pnew.opt_state[optim.GROUP_OF_FIELD[k]]["count"] == 5
     for k in densify.DensifyStats.FIELDS:
         close(getattr(pnew.stats, k), getattr(jnew.stats, k), 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("normal_weight", [0.0, 0.5])
+def test_phase1_step_normal_weight_matches_jax(normal_weight):
+    """make_phase1_step's weight of the normal-consistency loss against
+    JAX's (the quality gate passes it through): one step from fresh
+    optimizer states; the loss within 1e-5 relative and off the weight-1
+    loss by (1 - weight) x the normal loss; the parameters within 1e-5
+    where JAX's gradient (its first Adam moment / 0.1) exceeds 1e-3 of
+    the field's largest, as in test_full_step_from_carried_state: Adam
+    at eps 1e-15 turns a noise-level gradient into a full-lr step of
+    either sign."""
+    f = scene_fields(seed=12)
+    cfg_j = jax_cfg()
+    tx_j = joptim.build_optimizer(cfg_j.opt, 1.0)
+    jstep = jtrainer.make_phase1_step(cfg_j, 1.0, tx_j,
+                                      normal_weight=normal_weight)
+    jstate = jtrainer.make_train_state(cfg_j, jax_params(f), 1.0)
+    img, alpha, bg = image_inputs()
+    cam_j = jax_make_camera(R=np.eye(3), T=np.zeros(3), fovx=1.0, fovy=0.8,
+                            width=W, height=H)
+    jnew, jaux = jstep(jstate, cam_j, jnp.asarray(img), jnp.asarray(alpha),
+                       jnp.asarray(bg), jnp.int32(7))
+    params, cam, pimg, palpha, pbg = port_inputs(f)
+    cfg = port_cfg()
+    tx = optim.build_optimizer(cfg.opt, 1.0)
+    state = trainer.make_train_state(cfg, params, 1.0, tx=tx)
+    pnew, aux = trainer.make_phase1_step(
+        cfg, 1.0, tx, normal_weight=normal_weight)(state, cam, pimg, palpha,
+                                                   pbg, 7)
+    assert float(aux.loss) == pytest.approx(float(jaux.loss), rel=1e-5)
+    assert float(aux.normal_loss) == pytest.approx(float(jaux.normal_loss),
+                                                   rel=1e-5)
+    assert float(aux.normal_loss) > 1e-3
+    _, full = trainer.make_phase1_step(cfg, 1.0, tx)(state, cam, pimg,
+                                                     palpha, pbg, 7)
+    assert float(full.loss) - float(aux.loss) == pytest.approx(
+        (1.0 - normal_weight) * float(aux.normal_loss), rel=1e-4)
+    jmu = opt_numpy(jnew.opt_state)
+    for k in ("xyz", "features_dc", "opacity", "normal", "scaling",
+              "rotation"):
+        g = np.abs(jmu[optim.GROUP_OF_FIELD[k]]["mu"]) / 0.1
+        g[~f["alive"]] = 0.0
+        sel = g > 1e-3 * g.max()
+        assert sel.sum() > 0, k
+        np.testing.assert_allclose(
+            getattr(pnew.params, k).numpy()[sel],
+            np.asarray(getattr(jnew.params, k))[sel], rtol=1e-5, atol=1e-5)

@@ -187,3 +187,15 @@ def port_config(sizes, opt, train, gi, capacity):
     c.raster = RasterConfig(**sizes)
     c.gi = GIParams(**gi)
     return c
+
+
+def dryrun(p):
+    """`gi_gs_tpu_torch.dryrun`'s five legs over the default group on the
+    CPU, or only its multihost leg with p["multihost_only"]. p["lut"]: the
+    env-BRDF LUT the phase-2 leg reads (the tests' small one)."""
+    from gi_gs_tpu_torch import dryrun as dr
+    shading._brdf_lut_np = lambda *a: p["lut"]
+    shading._brdf_lut_quad.cache_clear()
+    if p.get("multihost_only"):
+        return {"multihost": dr.multihost_leg("cpu")}
+    return dr.dryrun_multichip(dist.get_world_size(), device="cpu")
