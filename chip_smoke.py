@@ -19,7 +19,8 @@ Phases (any failure exits non-zero):
                random cotangents; bit-equal), against its plain PyTorch
                version on the card at the shapes the main path gives it,
                with times and bounds (patch_fwd and patch_bwd per level
-               too, with each level's grid and resources); a kernel's ms is
+               too, both bit-equal, with each level's grid and
+               resources); a kernel's ms is
                its launches alone (CUDA events around the C launcher,
                `cuda_kernels.timed`), the plain ms the whole plain
                function
@@ -667,8 +668,9 @@ def kernel_phase(torch, dev, cfg, state, cam, light_arrays, spec):
         ops, _ = cm.level_operators(spec, light_arrays)
         gen = torch.Generator(device=dev).manual_seed(5)
         for name, replaces, tol in (
-                ("patch_fwd", "gi_gs_tpu/ops/pallas_patch.py:115",
-                 "1e-5 absolute (same offset order, no FMA)"),
+                ("patch_fwd", "gi_gs_tpu/ops/pallas_patch.py:115 (body "
+                 "pallas_patch.py:39-58)", "bit-equal (same products added "
+                 "in the same offset order, no FMA)"),
                 ("patch_bwd", "gi_gs_tpu/ops/pallas_patch.py:146 (body "
                  "pallas_patch.py:61-80)", "bit-equal (same products added "
                  "in the same offset order, no FMA)")):
@@ -691,22 +693,27 @@ def kernel_phase(torch, dev, cfg, state, cam, light_arrays, spec):
                 ko, po = run(), plain()
                 torch.cuda.synchronize()
                 lvl_err = float((ko - po).abs().max())
-                if name == "patch_bwd" and not torch.equal(ko, po):
-                    fail(f"patch_bwd at R={R}: {int((ko != po).sum())} of "
+                if not torch.equal(ko, po):
+                    fail(f"{name} at R={R}: {int((ko != po).sum())} of "
                          f"{po.numel()} values differ from the plain version")
                 err = max(err, lvl_err)
                 nbytes = (Wt.numel() + x.numel() + out_numel) * 4
                 flops = 6.0 * R * R * Pp * Pp * 3 * 2
                 ms = kernel_ms(run, name, 10)
                 b_ms = bound(nbytes, flops)[0]
+                res = cm.patch_resources(name, R, h, dev)
+                want = cm.patch_fwd_shape(R, h)["smem"]
+                if name == "patch_fwd" and res["dynamic_smem_bytes"] != want:
+                    fail(f"patch_fwd at R={R}: the launcher's shared memory "
+                         f"{res['dynamic_smem_bytes']} B is not "
+                         f"patch_fwd_shape's {want} B")
                 levels.append(dict(
                     R=R, P=Pp, h=h, ms=ms, bound_ms=b_ms,
                     bound_share=b_ms / ms, plain_ms=cuda_ms(plain, 1),
-                    bytes=nbytes, max_abs_err=lvl_err,
-                    **cm.patch_resources(name, R, h, dev)))
+                    bytes=nbytes, max_abs_err=lvl_err, **res))
                 log(f"  {name} R={R} P={Pp}: {levels[-1]}")
             entry(name, f"gi_gs_tpu_torch/csrc/{name}.cu", replaces, err,
-                  err <= 1e-5 if name == "patch_fwd" else err == 0, tol,
+                  err == 0, tol,
                   sum(v["ms"] for v in levels),
                   sum(v["plain_ms"] for v in levels),
                   sum(v["bytes"] for v in levels),

@@ -15,4 +15,12 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+# PyTorch's CPU exp, log, sqrt and the like call MKL's vector math. In the
+# first such call of a process that PyTorch splits across OpenMP threads,
+# worker threads can start before MKL has set itself up and then compute
+# their chunks at lower accuracy (f64 relative error ~3e-9, so other f32
+# bits): about one fresh process in ten. One call on this thread alone
+# sets MKL up first (tests/test_torch_cpu_first_call.py).
+torch.exp(torch.zeros(1, dtype=torch.float64))
+
 __version__ = "0.1.0"

@@ -364,21 +364,55 @@ def _apply_patch_plain(cubemap: torch.Tensor, src_idx: torch.Tensor,
     return _patch_fwd_plain(W, padded, h).permute(0, 2, 3, 1)
 
 
+# What one of three CTAs on an H100 SM may take of its 228 KB of shared
+# memory (each CTA also reserves 1 KB).
+_PATCH_FWD_CTA_SMEM = 233472 // 3 - 1024
+_PATCH_FWD_MAX_STAGES = 8
+
+
+def patch_fwd_shape(R: int, h: int) -> dict:
+    """Launch shape of `csrc/patch_fwd.cu` at one level (R, h): one CTA per
+    output row of a face (grid [1, R, 6]) of R consumer threads and a
+    producer warp, and a ring of `stages` stages, each row y of the P
+    weight planes of one dy and a `slot` per channel for its padded row.
+    The ring takes as many stages as fit three CTAs per SM (2 to 8).
+    `smem` is the dynamic shared memory in bytes, as the kernel computes
+    it."""
+    P, E = 2 * h + 1, R + 2 * h
+    slot = (E + 6) & ~3
+    stage = (P * R + 3 * slot + 31) & ~31
+    stages = max(2, min(_PATCH_FWD_MAX_STAGES, P,
+                        _PATCH_FWD_CTA_SMEM // (4 * stage + 16)))
+    return dict(stages=stages, slot=slot, stage_floats=stage,
+                smem=stages * stage * 4 + 2 * stages * 8,
+                threads=32 * (-(-R // 32) + 1), grid=[1, R, 6], ctas=6 * R)
+
+
 def patch_fwd(W: torch.Tensor, padded: torch.Tensor, R: int, P: int,
               h: int) -> torch.Tensor:
     """Locally connected halo filter (replaces
     pallas_patch.patch_apply_fwd). W [6, P^2, R, R]; padded
-    [6, 3, R+2h, R+2h] -> [6, 3, R, R]."""
+    [6, 3, R+2h, R+2h] -> [6, 3, R, R]. The kernel copies W in TMA boxes
+    and the padded rows in 16-byte units: R a multiple of 4 and at most
+    256, both 16-byte aligned (padded is copied if it is not)."""
     if not W.is_cuda:
         return _patch_fwd_plain(W, padded, h)
     dev = W.device
     E = R + 2 * h
+    if R % 4 or R > 256:
+        raise ValueError(f"patch_fwd: R = {R} is not a multiple of 4 up "
+                         "to 256")
     padded = padded.contiguous()
+    if padded.data_ptr() % 16:
+        padded = padded.clone()
     ck.check(W, "W", torch.float32, (6, P * P, R, R), dev)
     ck.check(padded, "padded", torch.float32, (6, 3, E, E), dev)
+    if W.data_ptr() % 16:
+        raise ValueError("patch_fwd: W is not 16-byte aligned")
     out = torch.empty((6, 3, R, R), dtype=torch.float32, device=dev)
     ck.launch("patch_fwd", "gigs_patch_fwd", dev, W.data_ptr(),
-              padded.data_ptr(), out.data_ptr(), R, P, h)
+              padded.data_ptr(), out.data_ptr(), R, P, h,
+              patch_fwd_shape(R, h)["stages"])
     return out
 
 
@@ -416,10 +450,12 @@ def patch_resources(kernel: str, R: int, h: int, device: torch.device
     if kernel == "patch_bwd":     # one padded row per CTA, <= 512 columns
         res = ck.resources("gigs_patch_bwd_resources", device, R, P)
         grid = [-(-E // (32 * min(-(-E // 32), 16))), E, 6]
-    else:                         # 32 x 8 output tiles of the level
-        res = ck.resources("gigs_patch_fwd_resources", device, h)
-        grid = [-(-R // 32), -(-R // 8), 6]
-    return dict(res, grid=grid, ctas=grid[0] * grid[1] * grid[2])
+        return dict(res, grid=grid, ctas=grid[0] * grid[1] * grid[2])
+    shape = patch_fwd_shape(R, h)  # one output row per CTA, a ring of dy
+    res = ck.resources("gigs_patch_fwd_resources", device, R, P,
+                       shape["stages"])
+    return dict(res, stages=shape["stages"], grid=shape["grid"],
+                ctas=shape["ctas"])
 
 
 def halo_pad(cubemap: torch.Tensor, src_idx: torch.Tensor, h: int

@@ -62,14 +62,14 @@ _SIGNATURES = {
                       _F, _F, _I, _I, _P, _P, _P],
     "gigs_gi_march_coherent": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                                _F, _F, _F, _F, _I, _I, _P, _P, _P, _P],
-    "gigs_patch_fwd": [_I, _P, _P, _P, _I, _I, _I, _P],
+    "gigs_patch_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "gigs_patch_bwd": [_I, _P, _P, _P, _I, _I, _I, _P],
     "gigs_composite_fwd_resources": [_I, _I, _I, _I, _P],
     "gigs_composite_bwd_resources": [_I, _I, _I, _P],
     "gigs_gi_march_resources": [_I, _I, _I, _P],
     "gigs_gi_march_coherent_resources": [_I, _I, _I, _I, _P],
     "gigs_expand_resources": [_I, _P],
-    "gigs_patch_fwd_resources": [_I, _I, _P],
+    "gigs_patch_fwd_resources": [_I, _I, _I, _I, _P],
     "gigs_patch_bwd_resources": [_I, _I, _I, _P],
 }
 RESOURCE_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",

@@ -52,6 +52,36 @@ def test_patch_plain_matches_ref_and_pallas():
                                atol=1e-7)
 
 
+@pytest.mark.parametrize("R,h", [(256, 7), (128, 20), (64, 28), (64, 4)],
+                         ids=["256", "128", "64", "base64"])
+def test_patch_fwd_shape_covers_the_level(R, h):
+    """`patch_fwd_shape` at the three patch levels of the 256 light and the
+    64 light's one level: its ring fits the H100's 232,448 B of opt-in
+    shared memory three CTAs to an SM (1 KB reserved each of 228 KB), each
+    stage holds one row of the P weight planes and every channel's padded
+    row at a shift of up to 3 floats, and the kernel's mapping (CTA
+    (0, y, f), consumer thread x < R -> texel (f, y, x)) gives every
+    output texel of the level to exactly one thread."""
+    s = cm.patch_fwd_shape(R, h)
+    P, E = 2 * h + 1, R + 2 * h
+    assert s["smem"] <= 232448
+    assert 3 * (s["smem"] + 1024) <= 228 * 1024
+    assert s["slot"] >= ((3 + E + 3) & ~3) and s["slot"] % 4 == 0
+    assert s["stage_floats"] >= P * R + 3 * s["slot"]
+    assert s["stage_floats"] % 32 == 0 and (E * E) % 4 == 0
+    assert 2 <= s["stages"] <= P
+    assert s["threads"] - 32 >= R and s["threads"] % 32 == 0
+    gx, gy, gz = s["grid"]
+    assert (gx, gz) == (1, 6) and s["ctas"] == gy * gz
+    count = np.zeros((6, R, R), np.int64)
+    x = np.arange(s["threads"] - 32)
+    x = x[x < R]
+    for f in range(gz):
+        for y in range(gy):
+            np.add.at(count, (f, y, x), 1)
+    assert (count == 1).all()
+
+
 def test_build_mips_packed_matches_jax():
     """Base 64: levels 64 (patch filter), 32 and 16 (dense) + diffuse."""
     rng = np.random.RandomState(3)

@@ -621,6 +621,38 @@ def test_patch_bwd_matches_plain(dev, R, rough):
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("base", [256, 128, 64])
+def test_patch_fwd_matches_plain_bit_equal(dev, base):
+    """The filter kernel against `_patch_fwd_plain` at every patch level of
+    the light of `base` (`build_prefilter_tables`: 256, 128 and 64 at
+    roughness 0.08, 0.22 and 0.36 for the 256 light; 128 and 64 for the
+    128 light; 64 for the 64 light, each with its own halo), on the
+    halo-padded faces of a random cubemap: bit-equal (the same products
+    added in the same offset order, no FMA), one launch per call, and the
+    C launcher's shared memory is `patch_fwd_shape`'s."""
+    from gi_gs_tpu_torch.models import light as light_mod
+    spec, arrays = light_mod.build_prefilter_tables(base, device=dev)
+    ops, _ = cm.level_operators(spec, arrays)
+    g = torch.Generator(device=dev).manual_seed(3)
+    levels = 0
+    for sp, op in zip(spec, ops):
+        if sp[0] == "dense":
+            continue
+        (src, W), h = op, sp[1]
+        R = W.shape[-1]
+        padded = cm.halo_pad(torch.rand(6, R, R, 3, device=dev, generator=g),
+                             src, h)
+        before = ck.launches["patch_fwd"]
+        k = cm.patch_fwd(W, padded, R, 2 * h + 1, h)
+        assert ck.launches["patch_fwd"] == before + 1
+        assert torch.equal(k, cm._patch_fwd_plain(W, padded, h)), (R, h)
+        res = cm.patch_resources("patch_fwd", R, h, dev)
+        assert res["dynamic_smem_bytes"] == cm.patch_fwd_shape(R, h)["smem"]
+        assert res["blocks_per_sm"] >= 1
+        levels += 1
+    assert levels == {256: 3, 128: 2, 64: 1}[base]
+
+
 def _transpose_case(case: str, device):
     """One gather transpose at the phase-2 path's shapes, inputs from a
     numpy seed on `device`: (forward output, input cotangent)."""
