@@ -1,0 +1,6 @@
+"""Device operations (kernels, copies and sets) per training step, from the
+device window."""
+
+
+def read(t):
+    return t.launches / t.steps if t.launches else None
