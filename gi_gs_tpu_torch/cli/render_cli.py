@@ -61,6 +61,7 @@ def build_light(cfg, cubemap: torch.Tensor) -> light_mod.CubemapLight:
 
 
 @torch.inference_mode()
+@timing.spanned("view")
 def render_pbr_view(cfg, state, cam, bg: torch.Tensor, light=None,
                     albedo_ratio: Optional[torch.Tensor] = None
                     ) -> Dict[str, torch.Tensor]:

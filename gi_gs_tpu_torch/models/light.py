@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops import cubemap as cm
+from ..utils import timing
 from ..utils.device import device_constant
 from ..utils.math_utils import clip
 
@@ -130,6 +131,7 @@ class _LatlongSample(torch.autograd.Function):
         return (taps.reshape(-1, 4, 3) * tap_w[..., None]).sum(1)
 
     @staticmethod
+    @timing.spanned("light_bwd")
     def backward(ctx, g):
         tap_w, order, bounds = ctx.saved_tensors
         tapg = (g.reshape(-1, 1, 3) * tap_w[..., None]).reshape(-1, 3)

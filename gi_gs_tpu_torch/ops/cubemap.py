@@ -33,6 +33,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils import timing
 from ..utils.device import device_constant
 from ..utils.math_utils import clip
 from . import cuda_kernels as ck
@@ -124,6 +125,7 @@ class _TakeRows(torch.autograd.Function):
             *idx.shape, flat.shape[1])
 
     @staticmethod
+    @timing.spanned("light_bwd")
     def backward(ctx, g):
         idx, = ctx.saved_tensors
         C = g.shape[-1]
@@ -231,6 +233,7 @@ class _CubemapMip(torch.autograd.Function):
                        c[:, :, 1, :, 0] + c[:, :, 1, :, 1])
 
     @staticmethod
+    @timing.spanned("light_bwd")
     def backward(ctx, dout):
         R = 2 * dout.shape[1]
         dirs = device_constant(_texel_dirs_f32, R, device=dout.device)
@@ -502,6 +505,7 @@ class _PatchFilter(torch.autograd.Function):
         return patch_fwd(W, padded, R, 2 * h + 1, h).permute(0, 2, 3, 1)
 
     @staticmethod
+    @timing.spanned("light_bwd")
     def backward(ctx, g):
         src_idx, W = ctx.saved_tensors
         h = ctx.h

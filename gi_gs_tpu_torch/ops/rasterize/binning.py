@@ -34,6 +34,9 @@ class Binning(NamedTuple):
     # original gaussian of segment k, or None: segments are already in
     # original gaussian order (JAX binning.py:193-209)
     seg_gaussian: Optional[torch.Tensor] = None
+    # [] rows the expansion made before the cap: (gaussian, tile) pairs
+    # and one sentinel row per gaussian that touches no tile
+    total: Optional[torch.Tensor] = None
 
 
 def _offsets(pre: Preprocessed) -> torch.Tensor:
@@ -192,4 +195,4 @@ def bin_and_sort(pre: Preprocessed, height: int, width: int,
         tile_start=tile_start.to(torch.int32), tile_count=tile_count,
         offsets=offsets,
         overflow=torch.clamp(total - cap, min=0),
-        max_tile_count=raw_count.max())
+        max_tile_count=raw_count.max(), total=total)

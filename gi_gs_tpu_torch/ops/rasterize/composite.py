@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...utils import timing
 from .. import cuda_kernels as ck
 from .config import RasterConfig
 from .preprocess import Preprocessed
@@ -510,6 +511,7 @@ class _Composite(torch.autograd.Function):
         return accum, final_t
 
     @staticmethod
+    @timing.spanned("composite_bwd")
     def backward(ctx, g_acc, g_t):
         (table, ids, tile_start, tile_count, inv_perm, offsets, accum4,
          final_t) = ctx.saved_tensors

@@ -171,6 +171,7 @@ def rasterize(means3d: torch.Tensor, cov3d: torch.Tensor,
     # through the sort keys (the CUDA binning is equally non-differentiable).
     with timing.stage("binning", dev), torch.no_grad():
         b = bin_and_sort(pre, height, width, cfg)
+        timing.count("instances", b.total)
     with timing.stage("composite", dev):
         table = composite_table(pre, opacity, color, normal, albedo,
                                 roughness, metallic)

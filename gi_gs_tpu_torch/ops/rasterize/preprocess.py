@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ...utils import timing
 from .config import RasterConfig
 
 
@@ -108,7 +109,11 @@ def preprocess(means3d: torch.Tensor, cov3d: torch.Tensor,
     statistic): d(px)/d(ndc_offset_x) = W/2, the CUDA ddelx_dx factor
     (backward.cu:505-506,616-617)."""
     dev = means3d.device
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+
+    def f32(v):
+        with timing.span("sync.preprocess_scalar"):     # a host copy
+            return torch.tensor(v, dtype=torch.float32, device=dev)
+
     tanfovx, tanfovy = f32(tanfovx), f32(tanfovy)
     fx = width / (2.0 * tanfovx)
     fy = height / (2.0 * tanfovy)

@@ -116,6 +116,7 @@ def make_dp_phase1_step(cfg: Config, cameras_extent: float, tx: GroupAdam,
     `group` (None: the default group); B a multiple of the group's
     size."""
 
+    @timing.spanned("step")
     def step(state: TrainState, cam_batch: Camera, images, alphas, bg,
              iteration: int):
         views = _local_views(cam_batch, images, alphas, group)
@@ -154,6 +155,7 @@ def make_dp_phase2_step(cfg: Config, cameras_extent: float, tx: GroupAdam,
                                                     device=dev)
     device_constant(shading._brdf_lut_quad, 256, device=dev)
 
+    @timing.spanned("step")
     def step(state: TrainState, cam_batch: Camera, images, alphas, bg,
              iteration: int):
         bg = torch.zeros_like(bg)

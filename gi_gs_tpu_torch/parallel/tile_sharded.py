@@ -36,7 +36,7 @@ from ..scene.cameras import Camera
 from ..train.optim import GroupAdam
 from ..train.trainer import (StepAux, TrainState, _apply_schedule_updates,
                              loss_and_grads)
-from ..utils import image_utils
+from ..utils import image_utils, timing
 from . import collectives
 
 
@@ -60,6 +60,7 @@ def make_ts_phase1_step(cfg: Config, cameras_extent: float, tx: GroupAdam,
     one all_reduce of the gradient partials."""
     group = dist.group.WORLD if group is None else group
 
+    @timing.spanned("step")
     def step(state: TrainState, camera: Camera, image, alpha, bg,
              iteration: int):
         loss, aux, grads, ndc_grad = loss_and_grads(

@@ -100,8 +100,9 @@ def render(camera: Camera, pc: GaussianParams, bg_color: torch.Tensor,
         zero, one = torch.zeros_like(opacity_map), torch.ones_like(opacity_map)
         opacity_map = torch.where(opacity_map < 0.004, zero, opacity_map)
         opacity_map = torch.where(opacity_map > 1.0 - 0.004, one, opacity_map)
-        normal_bg = torch.tensor([0.0, 0.0, 1.0], device=normal_map.device
-                                 )[:, None, None]
+        with timing.span("sync.normal_bg"):             # a host copy
+            normal_bg = torch.tensor([0.0, 0.0, 1.0],
+                                     device=normal_map.device)[:, None, None]
         normal_map = normal_map * opacity_map + (1.0 - opacity_map) * normal_bg
         mask_fd = (normal_from_depth == 0.0).all(dim=0, keepdim=True).float()
         normal_from_depth = normal_from_depth * (1.0 - mask_fd) + \

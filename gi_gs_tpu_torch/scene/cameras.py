@@ -12,7 +12,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..utils import math_utils
+from ..utils import math_utils, timing
 from ..utils.device import resolve_device
 
 
@@ -98,6 +98,7 @@ def compute_view_dirs(camera: Camera) -> torch.Tensor:
     (gi_gs_tpu/train/trainer.py compute_view_dirs; ref train.py:303-307)."""
     rays = canonical_rays(camera)
     rays = rays / torch.linalg.norm(rays, dim=-1, keepdim=True)
-    c2w = torch.linalg.inv(camera.w2c)
+    with timing.span("sync.view_dirs_inv"):     # inv reads its info flag
+        c2w = torch.linalg.inv(camera.w2c)
     vd = -(rays @ c2w[:3, :3].T)
     return vd.T.reshape(3, camera.height, camera.width)

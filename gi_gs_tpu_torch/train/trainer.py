@@ -233,6 +233,7 @@ def make_phase1_step(cfg: Config, cameras_extent: float, tx: GroupAdam,
     loss, the reference's hard-coded 1.0 (train.py:324); the quality gate
     passes it through."""
 
+    @timing.spanned("step")
     def step(state: TrainState, camera: Camera, image, alpha, bg,
              iteration: int):
         loss, aux, grads, ndc_grad = loss_and_grads(
@@ -369,6 +370,7 @@ def make_phase2_step(cfg: Config, cameras_extent: float, tx: GroupAdam,
                                                     device=dev)
     device_constant(shading._brdf_lut_quad, 256, device=dev)
 
+    @timing.spanned("step")
     def step(state: TrainState, camera: Camera, image, alpha, bg,
              iteration: int):
         bg = torch.zeros_like(bg)

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import timing
+
 
 def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (x - y).abs().mean()
@@ -47,7 +49,8 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11
          ) -> torch.Tensor:
     """Mean SSIM over [C, H, W] images in [0, 1] (11x11 gaussian window,
     sigma 1.5, C1 = 0.01^2, C2 = 0.03^2; ref utils/loss_utils.py)."""
-    g = torch.as_tensor(_gaussian_1d(window_size), device=img1.device)
+    with timing.span("sync.ssim_window"):               # a host copy
+        g = torch.as_tensor(_gaussian_1d(window_size), device=img1.device)
     stack = torch.cat([img1, img2, img1 * img1, img2 * img2, img1 * img2],
                       dim=0)
     C = img1.shape[0]
@@ -103,8 +106,9 @@ def bilateral_blur_3x3(img: torch.Tensor, sigma_color: float = 1.0,
     space_w = np.exp(-0.5 * (offs[:, 0] ** 2 / sigma_space[0] ** 2 +
                              offs[:, 1] ** 2 / sigma_space[1] ** 2)
                      ).astype(np.float32)
-    w = color_w * torch.as_tensor(space_w, device=img.device
-                                  )[:, None, None, None]
+    with timing.span("sync.bilateral_weights"):         # a host copy
+        space_w = torch.as_tensor(space_w, device=img.device)
+    w = color_w * space_w[:, None, None, None]
     ws = w.sum(dim=0)
     return (stack * w).sum(dim=0) / torch.maximum(ws, torch.full_like(ws, 1e-8))
 

@@ -1,0 +1,8 @@
+"""Device-busy milliseconds per served view of the operations launched
+under the program's spans preprocess, binning and composite (window B).
+Nothing without the program's spans (perfbench/spans.py)."""
+from perfbench import spans
+
+
+def read(t):
+    return spans.device_ms(t, "preprocess", "binning", "composite")
