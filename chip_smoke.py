@@ -34,24 +34,33 @@ Phases (any failure exits non-zero):
   7. train     the port's train CLI (`train_cli.main`, phase 1) for 30
                steps on 8 train views of 800x800 initialised from the 300k
                shell points, with a densification and an opacity reset,
-               launch counts set to 0 just before: composite_bwd must
-               launch once per step. Per-step and per-stage times, alive
-               counts, capacity growth, peak memory; then 3 untimed
+               launch counts set to 0 just before: composite_bwd and
+               reduce_instance_grads must launch once per step. Per-step
+               and per-stage times, alive counts, capacity growth, peak
+               memory; then 3 untimed
                steps, and 3 under torch.profiler for the device time by
                operation and the device's busy share.
   8. composite_bwd  the kernel against its plain version at the training
                path's settings: the trained state on its train view with
                the densest tile, the RasterConfig the train CLI ended with
                (cap_tile grown past the densest tile), random cotangents
+     reduce_instance_grads  the per-Gaussian reduction kernel at the
+               garden shapes (4,194,304 Gaussians, ~6.1 M instances in a
+               capacity 1.15x that, segment lengths drawn from a garden
+               step's histogram, a random unsort permutation, random rows)
+               against the plain prefix-sum chain on the same rows:
+               bit-equal, two launches bit-identical, both times, the byte
+               bound, the f32 error against float64 segment sums
   9. train parity  one phase-1 loss and its gradients on CUDA tensors
                (kernels) against CPU tensors (plain versions) at 64x48
  10. phase 2   the train CLI from phase 7's final checkpoint
                (--start_checkpoint, --pbr_iteration 30, 20 deferred-PBR
                steps, --indirect), launch counts set to 0 just before and
                read around every step: per step gi_march_coherent 2,
-               patch_fwd 3, patch_bwd 3, expand, composite_fwd and
-               composite_bwd 1 each, the exact gi_march 0. Per-step and
-               per-stage times, peak memory, the cubemap's minimum; then a
+               patch_fwd 3, patch_bwd 3, expand, composite_fwd,
+               composite_bwd and reduce_instance_grads 1 each, the exact
+               gi_march 0. Per-step and per-stage times, peak memory, the
+               cubemap's minimum; then a
                device profile of 3 phase-2 steps, with the device time of
                the light's gather transposes and their gathers by kernel
                (index_add_, index_select, cumsum, sort); any autograd index
@@ -134,7 +143,7 @@ counts these, `bound_ms_unculled` all of them), and each kernel's
 registers, shared memory and resident blocks per SM (phase 4 also for the
 two marches' SSAO and SSR instantiations); phase 8 also checks
 that two composite_bwd launches give bit-identical rows.
-Then the kernel table as one JSON line (eight kernels), the card line, and
+Then the kernel table as one JSON line (nine kernels), the card line, and
 last {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -911,6 +920,8 @@ def main() -> None:
 
     # -- 8. composite_bwd at the training path's settings ---------------------
     entries.insert(2, composite_bwd_phase(torch, dev, train_res, train_data))
+    entries.insert(3, reduce_phase(torch, dev,
+                                   np.random.RandomState(args.seed + 7)))
 
     # -- 9. train parity: one phase-1 gradient, kernels vs plain --------------
     t0 = time.time()
@@ -993,14 +1004,15 @@ def main() -> None:
 
 
 SERVING_KERNELS = ("expand", "composite_fwd", "gi_march", "patch_fwd")
-TRAINING_KERNELS = ("composite_bwd",)
+TRAINING_KERNELS = ("composite_bwd", "reduce_instance_grads")
 PHASE2_KERNELS = ("gi_march_coherent", "patch_bwd")
 ARGMAX_KERNELS = ("composite_fwd_peak",)
 # launches of one phase-2 step with --indirect at light_base_res 256
 PHASE2_STEP_LAUNCHES = {"expand": 1, "composite_fwd": 1,
                         "composite_fwd_peak": 0, "composite_bwd": 1,
-                        "gi_march": 0, "gi_march_coherent": 2,
-                        "patch_fwd": 3, "patch_bwd": 3}
+                        "reduce_instance_grads": 1, "gi_march": 0,
+                        "gi_march_coherent": 2, "patch_fwd": 3,
+                        "patch_bwd": 3}
 
 
 def train_phase(torch, dev, ck, timing, work_dir, rng):
@@ -1059,9 +1071,9 @@ def train_phase(torch, dev, ck, timing, work_dir, rng):
                                    for k, v in stages.items()))
     for r in res["reports"]:
         log(f"  report {r}")
-    if launches["composite_bwd"] != TRAIN_STEPS:
-        fail(f"composite_bwd launched {launches['composite_bwd']} times in "
-             f"{TRAIN_STEPS} steps")
+    for k in TRAINING_KERNELS:
+        if launches[k] != TRAIN_STEPS:
+            fail(f"{k} launched {launches[k]} times in {TRAIN_STEPS} steps")
     missing = [k for k in ("expand", "composite_fwd") if launches[k] == 0]
     if missing:
         fail(f"the training path launched no {missing}")
@@ -1278,6 +1290,80 @@ def composite_bwd_phase(torch, dev, res, data):
             reduction_f32_vs_f64_rel=red_rel,
             reduction_ms=cuda_ms(lambda: red(k_rows), 5), tile_count=hist,
             resources=log_resources(composite, "composite_bwd", rc, dev))
+
+
+# Gaussians per segment length (instances per Gaussian) in the compositing
+# backward of one garden.train_p1 step of perfbench (seed 2147489101;
+# 4,194,304 Gaussians, 6,129,957 instances): (shortest, longest, count)
+GARDEN_SEGMENTS = ((1, 1, 3186785), (2, 2, 598443), (3, 4, 317184),
+                   (5, 8, 88477), (9, 16, 3323), (17, 32, 90), (33, 64, 1),
+                   (129, 256, 1))
+
+
+def reduce_phase(torch, dev, rng):
+    """reduce_instance_grads at the garden shapes: segment lengths drawn
+    from GARDEN_SEGMENTS, the capacity the training path would bucket them
+    into, a random unsort permutation (the sort by tile scatters a
+    Gaussian's instances) and random rows. Fails unless the kernel is
+    bit-equal to the plain gather, cumsum and differences on the same rows
+    and two launches are bit-identical; logs both times, the byte bound
+    and the f32 error against a float64 segment sum."""
+    from gi_gs_tpu_torch.ops.rasterize import composite
+    from gi_gs_tpu_torch.ops.rasterize.pipeline import bucket_cap_instances
+    t0 = time.time()
+    seg = np.concatenate([rng.randint(lo, hi + 1, c)
+                          for lo, hi, c in GARDEN_SEGMENTS])
+    rng.shuffle(seg)
+    n, total = seg.size, int(seg.sum())
+    cap = bucket_cap_instances(total)
+    offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(seg)]).astype(
+        np.int32), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(int(rng.randint(1 << 30)))
+    inv_perm = torch.randperm(cap, device=dev, generator=gen)
+    rows = torch.randn((cap, composite.TABLE_DIM), device=dev, generator=gen)
+    red = lambda: composite.reduce_sorted_instance_grads(rows, inv_perm,
+                                                         offsets)
+    plain = lambda: composite._reduce_sorted_instance_grads_plain(
+        rows, inv_perm, offsets)
+    log(f"[reduce_instance_grads] at the garden shapes: {n} Gaussians, "
+        f"{total} instances in capacity {cap}, segments of 1 to "
+        f"{int(seg.max())}")
+    k = red()
+    if not torch.equal(red(), k):
+        fail("reduce_instance_grads: two launches on one input differ")
+    p = plain()
+    err = float((k - p).abs().max())
+    equal = torch.equal(k, p)
+    log(f"  two launches bit-identical; bit-equal to the plain version: "
+        f"{equal}")
+    owner = torch.repeat_interleave(torch.arange(n, device=dev),
+                                    torch.as_tensor(seg, device=dev))
+    exact = torch.zeros((n, composite.TABLE_DIM), dtype=torch.float64,
+                        device=dev).index_add_(
+        0, owner, rows[inv_perm[:total]].double())
+    del owner
+    f64 = float((k.double() - exact).abs().max())
+    rel = f64 / float(exact.abs().max())
+    del exact, k, p
+    torch.cuda.empty_cache()
+    log(f"  f32 prefix-sum differences vs float64 segment sums: {f64:.3e} "
+        f"({rel:.3e} of the largest sum)")
+    # each summed row and its inv_perm read once, offsets, the result
+    nbytes = (total * (composite.TABLE_DIM * 4 + 8) + (n + 1) * 4
+              + n * composite.TABLE_DIM * 4)
+    res = composite.kernel_resources("reduce_instance_grads", None, dev)
+    log(f"  reduce_instance_grads scan kernel resources: {res}")
+    entry = kernel_entry(
+        "reduce_instance_grads",
+        "gi_gs_tpu_torch/csrc/reduce_instance_grads.cu",
+        "none (XLA's gather, cumsum and segment differences, "
+        "gi_gs_tpu/ops/rasterize/composite.py:315)", err, equal,
+        "bit-equal", kernel_ms(red, "reduce_instance_grads", 20),
+        cuda_ms(plain, 3), nbytes, float(total * composite.TABLE_DIM),
+        gaussians=n, instances=total, cap_instances=cap,
+        f32_vs_f64_abs=f64, f32_vs_f64_rel=rel, resources=res)
+    log(f"  ({time.time() - t0:.1f} s)")
+    return entry
 
 
 def train_parity_phase(torch, dev, config_mod, params_from_numpy, rng):
@@ -2234,8 +2320,9 @@ def oracle_phase(torch, dev, ck, rng):
 
 
 # the kernels the port bench's run must launch: all but composite_fwd_peak
-BENCH_KERNELS = ("expand", "composite_fwd", "composite_bwd", "gi_march",
-                 "gi_march_coherent", "patch_fwd", "patch_bwd")
+BENCH_KERNELS = ("expand", "composite_fwd", "composite_bwd",
+                 "reduce_instance_grads", "gi_march", "gi_march_coherent",
+                 "patch_fwd", "patch_bwd")
 BENCH_PARITY_BOUND = 1e-6
 
 
@@ -2292,7 +2379,8 @@ def bench_phase(torch):
 
 # the kernels of both training phases, which the reduced gates must launch
 GATE_KERNELS = ("expand", "composite_fwd", "composite_bwd",
-                "gi_march_coherent", "patch_fwd", "patch_bwd")
+                "reduce_instance_grads", "gi_march_coherent", "patch_fwd",
+                "patch_bwd")
 
 
 def quality_phase(torch, dev, ck, card):

@@ -29,15 +29,17 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("expand.cu", "composite_fwd.cu", "composite_bwd.cu", "gi_march.cu",
-           "gi_march_coherent.cu", "patch_fwd.cu", "patch_bwd.cu")
+SOURCES = ("expand.cu", "composite_fwd.cu", "composite_bwd.cu",
+           "reduce_instance_grads.cu", "gi_march.cu", "gi_march_coherent.cu",
+           "patch_fwd.cu", "patch_bwd.cu")
 # -fmad=false: no multiply-add contraction, so each kernel rounds like its
 # plain PyTorch version (the exact f32 tile cull of `expand` relies on it).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 KERNELS = ("expand", "composite_fwd", "composite_fwd_peak", "composite_bwd",
-           "gi_march", "gi_march_coherent", "patch_fwd", "patch_bwd")
+           "reduce_instance_grads", "gi_march", "gi_march_coherent",
+           "patch_fwd", "patch_bwd")
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -58,6 +60,8 @@ _SIGNATURES = {
                                 _F, _F, _P, _P, _P, _P],
     "gigs_composite_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _I, _I, _I, _F, _F, _F, _P, _P],
+    "gigs_reduce_instance_grads": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                                   _P, _P],
     "gigs_gi_march": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
                       _F, _F, _I, _I, _P, _P, _P],
     "gigs_gi_march_coherent": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
@@ -68,6 +72,7 @@ _SIGNATURES = {
     "gigs_composite_bwd_resources": [_I, _I, _I, _P],
     "gigs_gi_march_resources": [_I, _I, _I, _P],
     "gigs_gi_march_coherent_resources": [_I, _I, _I, _I, _P],
+    "gigs_reduce_instance_grads_resources": [_I, _P],
     "gigs_expand_resources": [_I, _P],
     "gigs_patch_fwd_resources": [_I, _I, _I, _I, _P],
     "gigs_patch_bwd_resources": [_I, _I, _I, _P],

@@ -27,7 +27,9 @@ CUDA tensors, `_composite_fwd_plain(..., peak=True)` (the port of
   CUDA tensors, `_composite_bwd_plain` (the port of `_composite_bwd`) on
   CPU tensors. Both write per-sorted-instance gradient rows [cap, 21];
   `reduce_sorted_instance_grads` then sums them per Gaussian (gather
-  through inv_perm, f32 cumsum, segment differences), as in JAX.
+  through inv_perm, f32 cumsum, segment differences), as in JAX: the
+  CUDA kernel `csrc/reduce_instance_grads.cu` on CUDA tensors, PyTorch
+  ops on CPU tensors.
 
 The backward reproduces the CUDA reference's quirks (these ARE the
 reference gradients): only the colour and opacity channels couple into
@@ -326,8 +328,11 @@ def composite_fwd(table: torch.Tensor, ids: torch.Tensor,
 def kernel_resources(kernel: str, cfg: RasterConfig,
                      device: torch.device) -> dict:
     """Registers, shared memory and resident blocks per SM of the
-    compositing kernel `kernel` ("composite_fwd", "composite_fwd_peak" or
-    "composite_bwd") at cfg's tile shape (`cuda_kernels.resources`)."""
+    compositing kernel `kernel` ("composite_fwd", "composite_fwd_peak",
+    "composite_bwd", or "reduce_instance_grads": its scan kernel, whose
+    shape is fixed) at cfg's tile shape (`cuda_kernels.resources`)."""
+    if kernel == "reduce_instance_grads":
+        return ck.resources("gigs_reduce_instance_grads_resources", device)
     if kernel == "composite_bwd":
         return ck.resources("gigs_composite_bwd_resources", device,
                             cfg.tile_w, cfg.tile_h)
@@ -479,13 +484,21 @@ def composite_bwd(table, ids, tile_start, tile_count, accum4, final_t,
     return rows
 
 
-def reduce_sorted_instance_grads(g_sorted: torch.Tensor, inv_perm,
-                                 offsets) -> torch.Tensor:
-    """[cap, D] sorted-instance rows -> per-Gaussian [N, D] (composite.py:
-    315-329): unsort to the gaussian-major pre-sort order (one gather
-    through inv_perm), then contiguous segment sums as differences of an
-    f32 prefix sum. The port's binning is always in the original gaussian
-    order (`Binning.seg_gaussian` is None), so no permutation follows."""
+def _scan_log_chunk(cap: int) -> int:
+    """log2 of the chunk in which PyTorch's CUDA cumsum scans a [21, cap]
+    tensor along its rows (get_log_num_threads_x_inner_scan: 2^x threads
+    a row, x = (9 + ceil(log2 cap) - ceil(log2 21)) // 2 within [4, 9], two
+    elements each): the reduction kernel scans in the same chunks, so it
+    rounds as the plain version does on the card."""
+    x = (9 + max(cap - 1, 0).bit_length() - 5) // 2
+    return min(max(x, 4), 9) + 1
+
+
+def _reduce_sorted_instance_grads_plain(g_sorted: torch.Tensor, inv_perm,
+                                        offsets) -> torch.Tensor:
+    """The plain reduction (composite.py:315-329): unsort to the
+    gaussian-major pre-sort order (one gather through inv_perm), then
+    contiguous segment sums as differences of an f32 prefix sum."""
     cap, D = g_sorted.shape
     # The scan runs along the contiguous axis of a [D, cap] copy: a CUDA
     # cumsum along dim 0 of [cap, D] scans each of the D columns in one
@@ -496,6 +509,38 @@ def reduce_sorted_instance_grads(g_sorted: torch.Tensor, inv_perm,
     lo = torch.clamp(offsets[:-1].long(), 0, cap)
     hi = torch.clamp(offsets[1:].long(), 0, cap)
     return (csum[:, hi] - csum[:, lo]).t()
+
+
+def reduce_sorted_instance_grads(g_sorted: torch.Tensor, inv_perm,
+                                 offsets) -> torch.Tensor:
+    """[cap, 21] sorted-instance rows -> per-Gaussian [N, 21], as a
+    [21, N]-contiguous buffer seen through .t(): row g is the difference
+    of the f32 prefix sums of the unsorted rows at offsets[g + 1] and
+    offsets[g] (clamped to [0, cap]). The port's binning is always in the
+    original gaussian order (`Binning.seg_gaussian` is None), so no
+    permutation follows. The CUDA kernel `csrc/reduce_instance_grads.cu`
+    (bit-equal to the plain version on the card) for CUDA tensors; the
+    plain gather, cumsum and differences for CPU tensors."""
+    if not g_sorted.is_cuda:
+        return _reduce_sorted_instance_grads_plain(g_sorted, inv_perm,
+                                                   offsets)
+    dev = g_sorted.device
+    cap, n = g_sorted.shape[0], offsets.shape[0] - 1
+    ck.check(g_sorted, "g_sorted", torch.float32, (cap, TABLE_DIM), dev)
+    ck.check(inv_perm, "inv_perm", torch.int64, (cap,), dev)
+    ck.check(offsets, "offsets", torch.int32, (n + 1,), dev)
+    log_chunk = _scan_log_chunk(cap)
+    chunks = -(-cap >> log_chunk)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = torch.empty((TABLE_DIM, n), **f32)
+    loc = torch.empty((TABLE_DIM, cap), **f32)
+    tops = torch.empty((TABLE_DIM, log_chunk + 1, chunks), **f32)
+    lefts = torch.empty((TABLE_DIM, log_chunk, chunks), **f32)
+    ck.launch("reduce_instance_grads", "gigs_reduce_instance_grads", dev,
+              g_sorted.data_ptr(), inv_perm.data_ptr(), offsets.data_ptr(),
+              n, cap, log_chunk, loc.data_ptr(), tops.data_ptr(),
+              lefts.data_ptr(), out.data_ptr())
+    return out.t()
 
 
 class _Composite(torch.autograd.Function):

@@ -1,4 +1,4 @@
-"""The eight CUDA kernels against their plain PyTorch versions on the card
+"""The nine CUDA kernels against their plain PyTorch versions on the card
 (csrc/*.cu, built at first use), the coherent march's keys against the
 plain offset table included, and the tiled rasterizer against the
 brute-force oracle. Marked `cuda`: they skip without a GPU.
@@ -459,6 +459,70 @@ def test_composite_bwd_is_deterministic(dev):
     second = composite.composite_bwd(*bargs)
     assert float(first.abs().max()) > 0
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("cap", [pytest.param(1 << 18, id="cap_above_total"),
+                                 pytest.param(20000, id="cap_below_total"),
+                                 pytest.param(3000, id="cap_in_512_chunks")])
+def test_reduce_instance_grads_matches_plain(dev, cap):
+    """The per-Gaussian reduction kernel on a binned scene of 12,000 small
+    Gaussians and one that covers all 1,024 tiles of a 512x256 image at
+    8x16 tiles, with random rows (those of no segment included), at a cap
+    above the instance count and at two below it (the last segments
+    clamped to the cap; a partial last chunk of the prefix sum; at 3,000
+    PyTorch's cumsum scans in chunks of 512, not 1024): bit-equal to the
+    plain gather, cumsum and differences on the card, two launches
+    bit-identical, one launch counted, the plain version's shape and
+    strides; against a float64 segment sum of the same rows, within the
+    f32 prefix sums' error: 2 x (11 x chunks + 11) x 2^-24 x the column's
+    sum of |row| (the depth of the chunked scan's sums, at most 11 adds a
+    chunk of at least 512), plus the difference's own rounding."""
+    rng = np.random.RandomState(5)
+    w, h, n = 512, 256, 12001
+    cam = make_camera(np.eye(3), np.zeros(3), 1.0, 0.7, w, h, device=dev)
+    z = rng.uniform(1, 5, (n, 1))
+    xyz = np.concatenate([rng.uniform(-0.45, 0.45, (n, 2)) * z, z], 1)
+    scale = np.exp(rng.uniform(-5, -3.5, (n, 3)))
+    xyz[300], scale[300] = (0.0, 0.0, 2.0), 0.6
+    q = rng.normal(size=(n, 4))
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    cov = build_covariance_3d(t(scale), t(q / np.linalg.norm(
+        q, axis=1, keepdims=True)))
+    op = rng.uniform(0.05, 0.99, (n, 1))
+    op[300] = 0.9
+    cfg = RasterConfig(tile_h=8, tile_w=16, cap_instances=cap)
+    pre = preprocess(t(xyz), cov, cam.w2c, cam.full_proj, cam.tanfovx,
+                     cam.tanfovy, w, h, cfg, opacity=t(op))
+    b = binning.bin_and_sort(pre, h, w, cfg)
+    seg = (b.offsets[1:] - b.offsets[:-1]).long()
+    assert int(seg[300]) == 1024 and int(seg.min()) == 1
+    total = int(b.offsets[-1])
+    assert total < cap if cap == 1 << 18 else total > cap
+    rows = torch.randn((cap, composite.TABLE_DIM), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(6))
+
+    before = ck.launches["reduce_instance_grads"]
+    k = composite.reduce_sorted_instance_grads(rows, b.inv_perm, b.offsets)
+    assert ck.launches["reduce_instance_grads"] == before + 1
+    again = composite.reduce_sorted_instance_grads(rows, b.inv_perm,
+                                                   b.offsets)
+    assert torch.equal(k, again)
+    p = composite._reduce_sorted_instance_grads_plain(rows, b.inv_perm,
+                                                      b.offsets)
+    assert k.shape == p.shape and k.stride() == p.stride()
+    assert torch.equal(k, p)
+
+    lo = torch.clamp(b.offsets[:-1].long(), 0, cap)
+    length = torch.clamp(b.offsets[1:].long(), 0, cap) - lo
+    owner = torch.repeat_interleave(torch.arange(n, device=dev), length)
+    gathered = rows[b.inv_perm].double()
+    exact = torch.zeros((n, composite.TABLE_DIM), dtype=torch.float64,
+                        device=dev).index_add_(0, owner,
+                                               gathered[:owner.numel()])
+    depth = 11 * -(-cap // 512) + 11
+    bound = (2 * depth * 2.0 ** -24 * gathered.abs().sum(0)
+             + 2.0 ** -24 * exact.abs())
+    assert bool(((k.double() - exact).abs() <= bound).all())
 
 
 def _march_inputs(dev, h, w, with_rgb, seed=0):
