@@ -1,6 +1,7 @@
 """The program's spans in a `--trace 1` run: two windows after trace.py's
-four, n steps (or views) each, and what the span metrics
-(`span_metrics.json`, `metrics/<name>.py`) read of them.
+four, n steps (or views) each, and what the span metrics (the entries of
+BENCHMARK.json's `per_layer` whose `metrics/<name>.py` reads this
+module) read of them.
 
 - Window A: the program's span mode (`utils/timing.start_spans`), no
   profiler. Each span's host time, the counters (`host_syncs`,
@@ -16,11 +17,12 @@ four, n steps (or views) each, and what the span metrics
   the gap opened (`idle_by_span`): read for the breakdown only, since
   the profiler's 6-12 us a launch widens a host-bound step's gaps.
 
-`trace.windows` does not run these windows: `python3 perfbench/spans.py
---workload <cell> --seed <n>` runs the cell's `--trace 1` run with both
-after the four and prints its result line with the span metrics and a
-`spans` report. Without the program's span mode (`start_spans`) the
-windows are skipped and every span metric reads nothing."""
+`trace.windows` runs both after its four in every `--trace 1` run.
+`python3 perfbench/spans.py --workload <cell> --seed <n>` runs the
+cell's `--trace 1` run with `alternated`'s windows after those six and
+prints its result line with a `spans` report besides. Without the
+program's span mode (`start_spans`) the windows are skipped and every
+span metric reads nothing."""
 from __future__ import annotations
 
 import bisect
@@ -35,8 +37,6 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-# the per-layer entries of the span metrics, in BENCHMARK.json's form
-METRICS = os.path.join(HERE, "span_metrics.json")
 
 
 @dataclasses.dataclass
@@ -330,13 +330,8 @@ def windows(run: Callable, n: int, timing, dev, first: int
 
 
 # ---------------------------------------------------------------------------
-# A cell's --trace 1 run with both windows
+# A cell's --trace 1 run with the cost of tracing
 # ---------------------------------------------------------------------------
-
-def span_metrics() -> List[dict]:
-    with open(METRICS) as f:
-        return json.load(f)
-
 
 def alternated(run: Callable, n: int, timing, dev, first: int,
                rounds: int = 3) -> Tuple[List[Tuple[float, float]], list]:
@@ -362,29 +357,28 @@ def alternated(run: Callable, n: int, timing, dev, first: int,
 
 
 @contextlib.contextmanager
-def after_the_four(kept: list):
-    """Within the block, trace.windows runs windows A and B after its
-    four and sets the TraceData's `spans`, then `alternated`'s windows;
-    each (SpanData, the plain window's step seconds, the alternated
-    pairs) is appended to `kept`."""
+def after_the_six(kept: list):
+    """Within the block, trace.windows runs `alternated`'s windows after
+    its six, where the program has span mode; each (SpanData, the plain
+    window's step seconds, the alternated pairs) is appended to
+    `kept`."""
     from perfbench import trace
-    four = trace.windows
+    six = trace.windows
 
-    def six(run, n, timing, dev, inputs):
-        data, got = four(run, n, timing, dev, inputs)
-        data.spans, more = windows(run, n, timing, dev, 4 * n)
+    def more(run, n, timing, dev, inputs):
+        data, got = six(run, n, timing, dev, inputs)
         pairs = []
         if data.spans is not None:
             pairs, late = alternated(run, n, timing, dev, 6 * n)
-            more += late
+            got = got + late
         kept.append((data.spans, data.step_s, pairs))
-        return data, got + more
+        return data, got
 
-    trace.windows = six
+    trace.windows = more
     try:
         yield
     finally:
-        trace.windows = four
+        trace.windows = six
 
 
 def main(argv=None) -> int:
@@ -400,15 +394,13 @@ def main(argv=None) -> int:
     import torch
     from perfbench import cells, runner
 
-    bench = cells.benchmark(kept_out=True)
-    bench["per_layer"] += span_metrics()
-    cell = cells.load_cell(args.workload, bench)
+    cell = cells.load_cell(args.workload, cells.benchmark(kept_out=True))
     if not torch.cuda.is_available():
         print("perfbench.spans: needs a CUDA device. No result.",
               file=sys.stderr)
         return 3
     kept: List = []
-    with after_the_four(kept):
+    with after_the_six(kept):
         out = runner.run_cell(cell, args.seed, args.seconds, True,
                               torch.device("cuda", 0), started)
     if loaded_forbidden():

@@ -1,10 +1,11 @@
-"""The span windows and the span metrics (perfbench/spans.py,
-span_metrics.json, metrics/<name>.py): each reader on a synthetic trace
-(attribution through the launch across threads, unions of intervals,
-idle gaps by span, sync idle, host issue, counters), nothing from a
-program without span mode, and on the CPU at a tiny size a traced run
-of each cell with both windows after the four, whose line carries the
-span metrics of that cell."""
+"""The span windows and the span metrics (perfbench/spans.py, the entries
+of BENCHMARK.json whose metrics/<name>.py reads perfbench.spans): each
+reader on a synthetic trace (attribution through the launch across
+threads, unions of intervals, idle gaps by span, sync idle, host issue,
+counters), nothing from a program without span mode, and on the CPU at a
+tiny size a traced run of each cell, whose line carries the span metrics
+of that cell, and whose four windows read as they do without the span
+windows."""
 from __future__ import annotations
 
 import time
@@ -13,13 +14,15 @@ import types
 import pytest
 import torch
 
-from perfbench import cells, runner, spans
+from perfbench import cells, runner, spans, trace, work
 from gi_gs_tpu_torch.utils.timing import Span
 
 from tiny import tiny_cell
 
 SEED = 2 ** 31 + 23
-METRICS = {m["name"]: m for m in spans.span_metrics()}
+METRICS = {m["name"]: m for m in cells.benchmark()["per_layer"]
+           if getattr(cells.metric_module(m["name"]), "spans", None)
+           is spans}
 CELLS = sorted({c for m in METRICS.values() for c in m["workloads"]})
 
 
@@ -109,28 +112,25 @@ def test_no_span_mode_no_windows():
 
 def test_entries_name_files_and_cells():
     bench = cells.benchmark()
-    known = {w["name"] for w in cells.benchmark(kept_out=True)["workloads"]}
-    layers = {m["layer"] for m in bench["per_layer"]} | {"light"}
+    known = {w["name"] for w in bench["workloads"]}
     e2e = {m["name"]: m for m in bench["end_to_end"]}
+    assert len(METRICS) >= 12
     for m in METRICS.values():
-        assert m["source"] == "program_span" and m["layer"] in layers
+        assert m["source"] in ("program_span", "program_counter")
         assert set(m["workloads"]) <= known
         assert set(m["workloads"]) <= set(e2e[m["moves"]]["workloads"])
         assert callable(cells.metric_reader(m["name"]))
-    assert not set(METRICS) & {m["name"] for m in bench["per_layer"]}
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_traced_line_with_span_windows(name):
-    cell = tiny_cell(name)
-    mine = [m for m in METRICS.values() if name in m["workloads"]]
-    cell.per_layer = cell.per_layer + mine
     kept = []
-    with spans.after_the_four(kept):
-        out = runner.run_cell(cell, SEED, 0.5, True, torch.device("cpu"),
-                              time.time())
+    with spans.after_the_six(kept):
+        out = runner.run_cell(tiny_cell(name), SEED, 0.5, True,
+                              torch.device("cpu"), time.time())
     assert out["correct"], out["checks"]
-    assert {m["name"] for m in mine} <= set(out["metrics"])
+    assert {m for m in METRICS if name in METRICS[m]["workloads"]} <= \
+        set(out["metrics"])
     data, plain, pairs = kept[0]
     assert {s.name for s in data.spans if s.parent == 0} == \
         {"view" if "serve" in name else "step"}
@@ -138,3 +138,47 @@ def test_traced_line_with_span_windows(name):
     rep = spans.report(data, plain, pairs)
     assert rep["counters_per_step"]["host_syncs"] >= 6
     assert rep["counters_per_step"]["instances"] > 0
+
+
+def _traced(name, monkeypatch, span_windows):
+    """A traced run of the cell at the tiny size, and its TraceData."""
+    got = []
+    six = trace.windows
+
+    def keep(*args):
+        data, res = six(*args)
+        got.append(data)
+        return data, res
+
+    with monkeypatch.context() as m:
+        m.setattr(trace, "windows", keep)
+        if not span_windows:
+            m.setattr(spans, "windows", lambda *a: (None, []))
+        out = runner.run_cell(tiny_cell(name), SEED, 0.5, True,
+                              torch.device("cpu"), time.time())
+    return out, got[0]
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_span_windows_leave_the_four_as_they_were(name, monkeypatch):
+    """Every span metric the cell lists reads a number; without the span
+    windows none does, and the four windows' counts read the same: the
+    launches and the work counts behind `mfu`, on the same seed."""
+    on, d_on = _traced(name, monkeypatch, True)
+    off, d_off = _traced(name, monkeypatch, False)
+    assert on["correct"] and off["correct"]
+    mine = {m for m in METRICS if name in METRICS[m]["workloads"]}
+    assert mine and all(on["metrics"][m]["value"] is not None
+                        for m in mine)
+    assert not mine & set(off["metrics"])
+    assert d_on.spans is not None and d_off.spans is None
+    assert on["attempted"] == off["attempted"] + 2 * d_on.steps
+    for m in set(on["metrics"]) | set(off["metrics"]):
+        if m.startswith("launches_per_"):
+            assert on["metrics"].get(m) == off["metrics"].get(m)
+    assert (d_on.steps, d_on.launches) == (d_off.steps, d_off.launches)
+    assert work.composite_walk(d_on) == work.composite_walk(d_off)
+    assert work.composite_walk(d_on)["pairs"] > 0
+    mfu = "mfu.serve" if "serve" in name else "mfu.train"
+    flops = cells.metric_module(mfu).flops
+    assert flops(d_on) == flops(d_off) > 0

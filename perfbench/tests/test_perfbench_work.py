@@ -106,3 +106,36 @@ def test_idle_gaps_name_what_the_host_did():
     gaps = trace.idle_gaps(dev, host)
     assert gaps == pytest.approx({"aten::mul": 20e-6,
                                   "cudaLaunchKernel": 15e-6})
+
+
+def test_reduction_roofline_counts_the_least_bytes():
+    mod = cells.metric_module("reduce_instance_grads_roofline.train")
+    # a garden p1 step's rows (4,194,304 Gaussians, 6,129,957 rows): the
+    # kernel's own 0.279 ms bound (PERF.md's table), within 5%
+    bound_ms = mod.nbytes(6129957, 4194304) / work.HBM_BYTES_PER_S * 1e3
+    assert bound_ms == pytest.approx(0.279, rel=0.05)
+    assert mod.nbytes(10, 4) == 10 * (21 * 4 + 4) + 4 * 21 * 4
+
+    def gbuffer(offsets, cap):
+        return {"binning": types.SimpleNamespace(
+                    offsets=torch.tensor(offsets, dtype=torch.int32)),
+                "raster": types.SimpleNamespace(cap_instances=cap)}
+
+    # the first step's three launches, 2 ms in all; the second's are not
+    # counted. 3 Gaussians, one unseen (a row all the same), 7 rows
+    step = [("void (anonymous namespace)::reduce_scan_kernel<10>(float "
+             "const*, long long const*)", 1.0),
+            ("(anonymous namespace)::reduce_carry_kernel<10>(float*)", 0.5),
+            ("(anonymous namespace)::reduce_diff_kernel(float const*)",
+             0.5)]
+    t = _trace(step + [(n, 9.0) for n, _ in step],
+               gbuffer=gbuffer([0, 4, 5, 7], 64))
+    assert mod.count(t) == (mod.nbytes(7, 3), 21 * 7)
+    assert mod.read(t) == pytest.approx(
+        100 * work.bound_s(*mod.count(t)) / 2e-3)
+    # rows past the instance capacity are not there to read
+    t.cache["gbuffer"] = gbuffer([0, 4, 5, 7], 6)
+    assert mod.count(t) == (mod.nbytes(6, 3), 21 * 6)
+    assert mod.read(_trace(step[:2], gbuffer=gbuffer([0, 1], 8))) is None
+    t.cache["gbuffer"] = gbuffer([0], 8)
+    assert mod.read(t) is None

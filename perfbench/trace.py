@@ -8,7 +8,10 @@ for two readings:
   host operator events, which slow a host-bound step), for the device's
   busy time, the launches and each kernel's device time;
 - the host window: the profiler recording host operators as well, read
-  only for the idle gaps of the breakdown, by what the host was doing.
+  only for the idle gaps of the breakdown, by what the host was doing;
+- after those four, the program's span windows A and B (`spans.py`),
+  which the span metrics read; skipped where the program has no span
+  mode.
 
 What the per-layer readers (`metrics/*.py`) read is a `TraceData`."""
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from . import spans
 from .loops import sync
 
 
@@ -52,6 +56,8 @@ class TraceData:
     inputs: object = None              # what the work counts are taken on
     #                                    (`work.Inputs`)
     cache: Dict = dataclasses.field(default_factory=dict)   # work's walks
+    spans: Optional["spans.SpanData"] = None   # windows A and B; None
+    #                                    without the program's span mode
 
     @property
     def busy_s(self) -> float:
@@ -182,17 +188,20 @@ def stage_window(timing, fn: Callable, steps: int, dev
 def windows(run: Callable, n: int, timing, dev, inputs: Callable
             ) -> Tuple[TraceData, list]:
     """The four windows over steps (or views) 0 .. 4n - 1 of `run(i0, n)`,
-    n in each, and the results of all of them, in order; `inputs(i0)`
-    takes the inputs of step i0 as they stand, for the work counts of
-    the device window's first step. The plain window comes first, before
-    the profiler has traced the device: run after it, it read a view
-    ~11 ms slower than an untraced run did (PERF.md, section 6)."""
+    n in each, then the span windows A and B over steps 4n .. 6n - 1, and
+    the results of all of them, in order; `inputs(i0)` takes the inputs
+    of step i0 as they stand, for the work counts of the device window's
+    first step. The plain window comes first, before the profiler has
+    traced the device: run after it, it read a view ~11 ms slower than an
+    untraced run did (PERF.md, section 6). Window A runs after two
+    profiled windows all the same, so its host times may read high."""
     step_s, r0 = plain_window(lambda: run(0, n), n, dev)
     stage_ms, r1 = stage_window(timing, lambda: run(n, n), n, dev)
     first = inputs(2 * n)
     window, device, _, r2 = profile(lambda: run(2 * n, n), dev)
     _, hdev, host, r3 = profile(lambda: run(3 * n, n), dev, host=True)
+    span_data, more = spans.windows(run, n, timing, dev, 4 * n)
     data = TraceData(steps=n, window_s=window, device=device,
                      gaps=idle_gaps(hdev, host), stage_ms=stage_ms,
-                     step_s=step_s, inputs=first)
-    return data, [r0, r1, r2, r3]
+                     step_s=step_s, inputs=first, spans=span_data)
+    return data, [r0, r1, r2, r3] + more
