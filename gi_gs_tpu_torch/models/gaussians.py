@@ -76,9 +76,6 @@ class GaussianParams:
         # Dead (padding) slots must not render: force opacity to 0.
         return _rounded(torch.sigmoid, self.opacity) * self.alive[:, None]
 
-    def get_features(self) -> torch.Tensor:
-        return torch.cat([self.features_dc, self.features_rest], dim=1)
-
     def get_normal(self) -> torch.Tensor:
         return math_utils.normalize(self.normal)
 
@@ -96,8 +93,8 @@ class GaussianParams:
             self.get_scaling(), self.rotation, scale_modifier)
 
     def colors_from_sh(self, campos: torch.Tensor) -> torch.Tensor:
-        return sh_ops.sh_to_rgb(self.active_sh_degree, self.get_features(),
-                                self.xyz, campos)
+        return sh_ops.sh_to_rgb(self.active_sh_degree, self.features_dc,
+                                self.features_rest, self.xyz, campos)
 
     def one_up_sh_degree(self) -> "GaussianParams":
         if self.active_sh_degree < self.max_sh_degree:

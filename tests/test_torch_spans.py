@@ -247,10 +247,12 @@ def test_step_span_tree(phase, syncs):
     names = by_name(rec.spans)
     want = PHASE1 if phase == 1 else PHASE2
     assert want <= set(names)
-    assert set(names) - want == {"step", "composite_bwd"} | set(syncs) | (
-        {"light_bwd"} if phase == 2 else set())
+    assert set(names) - want == {"step", "composite_bwd", "sh", "sh_bwd"} \
+        | set(syncs) | ({"light_bwd"} if phase == 2 else set())
     parent = lambda s: ids[s.parent].name
     assert {parent(s) for s in names["composite_bwd"]} == {"backward"}
+    assert {parent(s) for s in names["sh"]} == {"activations"}
+    assert {parent(s) for s in names["sh_bwd"]} == {"backward"}
     assert parent(names["preprocess"][0]) == "step"
     assert {parent(s) for s in names["sync.preprocess_scalar"]} == \
         {"preprocess"}

@@ -138,7 +138,7 @@ def worker(repeats: int, quick: bool) -> None:
             return out
         setattr(module, attr, wrapped)
 
-    stage("sh", sh_ops, "eval_sh")
+    stage("sh", sh_ops, "sh_to_rgb")
     build_cov = math_utils.build_covariance_3d
 
     def recorded_cov(scaling, rotation_raw, *a, **kw):
