@@ -34,8 +34,9 @@ Phases (any failure exits non-zero):
   7. train     the port's train CLI (`train_cli.main`, phase 1) for 30
                steps on 8 train views of 800x800 initialised from the 300k
                shell points, with a densification and an opacity reset,
-               launch counts set to 0 just before: composite_bwd and
-               reduce_instance_grads must launch once per step. Per-step
+               launch counts set to 0 just before: composite_bwd,
+               reduce_instance_grads and sh_bwd must launch once per step
+               (sh_fwd in the steps and the eval renders). Per-step
                and per-stage times, alive counts, capacity growth, peak
                memory; then 3 untimed
                steps, and 3 under torch.profiler for the device time by
@@ -51,6 +52,12 @@ Phases (any failure exits non-zero):
                against the plain prefix-sum chain on the same rows:
                bit-equal, two launches bit-identical, both times, the byte
                bound, the f32 error against float64 segment sums
+     sh_fwd, sh_bwd  the SH colour's kernel pair at bicycle's shapes
+               (2^23 slots, degree 3, 15 rest rows, the colour's gradient
+               as columns 6:9 of a column-major [N, 21]) against the plain
+               twin on the same tensors: colour and every gradient
+               bit-equal, two launches bit-identical, both times, the
+               byte bound, each kernel's resources
   9. train parity  one phase-1 loss and its gradients on CUDA tensors
                (kernels) against CPU tensors (plain versions) at 64x48
  10. phase 2   the train CLI from phase 7's final checkpoint
@@ -58,7 +65,8 @@ Phases (any failure exits non-zero):
                steps, --indirect), launch counts set to 0 just before and
                read around every step: per step gi_march_coherent 2,
                patch_fwd 3, patch_bwd 3, expand, composite_fwd,
-               composite_bwd and reduce_instance_grads 1 each, the exact
+               composite_bwd, reduce_instance_grads, sh_fwd and sh_bwd 1
+               each, the exact
                gi_march 0. Per-step and per-stage times, peak memory, the
                cubemap's minimum; then a
                device profile of 3 phase-2 steps, with the device time of
@@ -117,7 +125,7 @@ Phases (any failure exits non-zero):
                process at full size (800x800, 200k Gaussians, capacity
                2^18): its JSON line printed and checked (finite loss,
                all 8 stages timed, the exact march within 1e-6 of its
-               plain version, 7 kernels launched in that process)
+               plain version, 10 kernels launched in that process)
  17. quality  the quality gate's reduced configs on the card
                (`gi_gs_tpu_torch.quality_gate`; tests/test_quality.py's
                sizes and bars): phase 1 at 64 px, 1200 steps on 16 ring
@@ -143,7 +151,7 @@ counts these, `bound_ms_unculled` all of them), and each kernel's
 registers, shared memory and resident blocks per SM (phase 4 also for the
 two marches' SSAO and SSR instantiations); phase 8 also checks
 that two composite_bwd launches give bit-identical rows.
-Then the kernel table as one JSON line (nine kernels), the card line, and
+Then the kernel table as one JSON line (eleven kernels), the card line, and
 last {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -922,6 +930,7 @@ def main() -> None:
     entries.insert(2, composite_bwd_phase(torch, dev, train_res, train_data))
     entries.insert(3, reduce_phase(torch, dev,
                                    np.random.RandomState(args.seed + 7)))
+    entries[4:4] = sh_phase(torch, dev, np.random.RandomState(args.seed + 8))
 
     # -- 9. train parity: one phase-1 gradient, kernels vs plain --------------
     t0 = time.time()
@@ -1003,8 +1012,9 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-SERVING_KERNELS = ("expand", "composite_fwd", "gi_march", "patch_fwd")
-TRAINING_KERNELS = ("composite_bwd", "reduce_instance_grads")
+SERVING_KERNELS = ("expand", "composite_fwd", "gi_march", "patch_fwd",
+                   "sh_fwd")
+TRAINING_KERNELS = ("composite_bwd", "reduce_instance_grads", "sh_bwd")
 PHASE2_KERNELS = ("gi_march_coherent", "patch_bwd")
 ARGMAX_KERNELS = ("composite_fwd_peak",)
 # launches of one phase-2 step with --indirect at light_base_res 256
@@ -1012,7 +1022,7 @@ PHASE2_STEP_LAUNCHES = {"expand": 1, "composite_fwd": 1,
                         "composite_fwd_peak": 0, "composite_bwd": 1,
                         "reduce_instance_grads": 1, "gi_march": 0,
                         "gi_march_coherent": 2, "patch_fwd": 3,
-                        "patch_bwd": 3}
+                        "patch_bwd": 3, "sh_fwd": 1, "sh_bwd": 1}
 
 
 def train_phase(torch, dev, ck, timing, work_dir, rng):
@@ -1074,7 +1084,8 @@ def train_phase(torch, dev, ck, timing, work_dir, rng):
     for k in TRAINING_KERNELS:
         if launches[k] != TRAIN_STEPS:
             fail(f"{k} launched {launches[k]} times in {TRAIN_STEPS} steps")
-    missing = [k for k in ("expand", "composite_fwd") if launches[k] == 0]
+    missing = [k for k in ("expand", "composite_fwd", "sh_fwd")
+               if launches[k] == 0]
     if missing:
         fail(f"the training path launched no {missing}")
     if not all(math.isfinite(st["loss"]) for st in steps):
@@ -1364,6 +1375,74 @@ def reduce_phase(torch, dev, rng):
         f32_vs_f64_abs=f64, f32_vs_f64_rel=rel, resources=res)
     log(f"  ({time.time() - t0:.1f} s)")
     return entry
+
+
+# bicycle.train_p2's SH layout: 2^23 slots at degree 3, 15 rest rows
+SH_SLOTS = 1 << 23
+SH_DEG, SH_ROWS = 3, 15
+
+
+def sh_phase(torch, dev, rng):
+    """sh_fwd and sh_bwd at bicycle's shapes (SH_SLOTS slots, degree 3, 15
+    rest rows, random coefficients and means around a ring camera, the
+    colour's gradient as columns 6:9 of a column-major [N, 21], as the
+    compositing backward hands it over) against the plain twin on the same
+    tensors: the colour and every gradient bit-equal. Returns the two
+    kernels' entries: times, the byte bound, the plain twin's times."""
+    from gi_gs_tpu_torch.ops import cuda_kernels as ck
+    from gi_gs_tpu_torch.ops import sh
+    t0 = time.time()
+    n, rows, deg = SH_SLOTS, SH_ROWS, SH_DEG
+    gen = torch.Generator(device=dev).manual_seed(int(rng.randint(1 << 30)))
+    dc = torch.randn((n, 1, 3), device=dev, generator=gen)
+    rest = 0.3 * torch.randn((n, rows, 3), device=dev, generator=gen)
+    means = 3.0 * torch.randn((n, 3), device=dev, generator=gen)
+    campos = torch.tensor([4.0, 0.5, 1.4], device=dev)
+    g = torch.randn((21, n), device=dev, generator=gen).t()[:, 6:9]
+    needs = (True, True, True)
+    fwd = lambda: sh.sh_fwd(deg, dc, rest, means, campos)
+    bwd = lambda: sh.sh_bwd(deg, g, dc, rest, means, campos, needs)
+    plain_fwd = lambda: sh._sh_fwd_plain(deg, dc, rest, means, campos)
+    log(f"[sh] at bicycle's shapes: {n} slots, degree {deg}, {rows} rest "
+        f"rows, the colour's gradient at strides {g.stride()}")
+    out, grads = fwd(), bwd()
+    if not (torch.equal(fwd(), out) and all(
+            torch.equal(a, b) for a, b in zip(bwd(), grads))):
+        fail("sh: two launches on one input differ")
+    want, saved = plain_fwd()
+    ref = sh._sh_bwd_plain(deg, g, saved, needs)
+    pairs = list(zip(("colour", "g_dc", "g_rest", "g_means"), (out, *grads),
+                     (want, *ref)))
+    equal = {k: torch.equal(a, b) for k, a, b in pairs}
+    errs = {k: float((a - b).abs().max()) for k, a, b in pairs}
+    clamped = float((want == 0).float().mean())
+    log(f"  bit-equal to the plain twin: {equal}; largest differences "
+        f"{errs}; {clamped:.4f} of the colour channels clamped")
+    del out, grads, want, ref, pairs
+    plain_bwd = lambda: sh._sh_bwd_plain(deg, g, saved, needs)
+    ms_plain = (cuda_ms(plain_fwd, 3), cuda_ms(plain_bwd, 3))
+    del saved
+    torch.cuda.empty_cache()
+    # the kernels' bytes a slot: means, dc, rest in, the colour out; then
+    # g, means, dc, rest in, their three gradients out
+    fwd_bytes = n * 4 * (3 + 3 + 3 * rows + 3)
+    bwd_bytes = n * 4 * (3 + 3 + 3 + 3 * rows + 3 + 3 * rows + 3)
+    entries = []
+    for name, fn, nbytes, flops, plain_ms, keys in (
+            ("sh_fwd", fwd, fwd_bytes, 150.0 * n, ms_plain[0], ("colour",)),
+            ("sh_bwd", bwd, bwd_bytes, 400.0 * n, ms_plain[1],
+             ("g_dc", "g_rest", "g_means"))):
+        res = ck.resources("gigs_sh_resources", dev, int(name == "sh_bwd"),
+                           rows)
+        log(f"  {name} resources: {res}")
+        entries.append(kernel_entry(
+            name, "gi_gs_tpu_torch/csrc/sh.cu",
+            "none: JAX's sh_to_rgb (gi_gs_tpu/ops/sh.py:74) is XLA",
+            max(errs[k] for k in keys), all(equal[k] for k in keys),
+            "bit-equal", kernel_ms(fn, name, 20), plain_ms, nbytes, flops,
+            slots=n, degree=deg, rest_rows=rows, resources=res))
+    log(f"  ({time.time() - t0:.1f} s)")
+    return entries
 
 
 def train_parity_phase(torch, dev, config_mod, params_from_numpy, rng):
@@ -2322,7 +2401,7 @@ def oracle_phase(torch, dev, ck, rng):
 # the kernels the port bench's run must launch: all but composite_fwd_peak
 BENCH_KERNELS = ("expand", "composite_fwd", "composite_bwd",
                  "reduce_instance_grads", "gi_march", "gi_march_coherent",
-                 "patch_fwd", "patch_bwd")
+                 "patch_fwd", "patch_bwd", "sh_fwd", "sh_bwd")
 BENCH_PARITY_BOUND = 1e-6
 
 
@@ -2380,7 +2459,7 @@ def bench_phase(torch):
 # the kernels of both training phases, which the reduced gates must launch
 GATE_KERNELS = ("expand", "composite_fwd", "composite_bwd",
                 "reduce_instance_grads", "gi_march_coherent", "patch_fwd",
-                "patch_bwd")
+                "patch_bwd", "sh_fwd", "sh_bwd")
 
 
 def quality_phase(torch, dev, ck, card):

@@ -31,15 +31,16 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("expand.cu", "composite_fwd.cu", "composite_bwd.cu",
            "reduce_instance_grads.cu", "gi_march.cu", "gi_march_coherent.cu",
-           "patch_fwd.cu", "patch_bwd.cu")
+           "patch_fwd.cu", "patch_bwd.cu", "sh.cu")
 # -fmad=false: no multiply-add contraction, so each kernel rounds like its
-# plain PyTorch version (the exact f32 tile cull of `expand` relies on it).
+# plain PyTorch version (the exact f32 tile cull of `expand` and the bits
+# of `sh_fwd` / `sh_bwd` rely on it).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 KERNELS = ("expand", "composite_fwd", "composite_fwd_peak", "composite_bwd",
            "reduce_instance_grads", "gi_march", "gi_march_coherent",
-           "patch_fwd", "patch_bwd")
+           "patch_fwd", "patch_bwd", "sh_fwd", "sh_bwd")
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -68,6 +69,9 @@ _SIGNATURES = {
                                _F, _F, _F, _F, _I, _I, _P, _P, _P, _P],
     "gigs_patch_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "gigs_patch_bwd": [_I, _P, _P, _P, _I, _I, _I, _P],
+    "gigs_sh_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "gigs_sh_bwd": [_I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                    _P],
     "gigs_composite_fwd_resources": [_I, _I, _I, _I, _P],
     "gigs_composite_bwd_resources": [_I, _I, _I, _P],
     "gigs_gi_march_resources": [_I, _I, _I, _P],
@@ -76,6 +80,7 @@ _SIGNATURES = {
     "gigs_expand_resources": [_I, _P],
     "gigs_patch_fwd_resources": [_I, _I, _I, _I, _P],
     "gigs_patch_bwd_resources": [_I, _I, _I, _P],
+    "gigs_sh_resources": [_I, _I, _I, _P],
 }
 RESOURCE_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
                  "threads", "blocks_per_sm", "local_bytes", "cluster_size",

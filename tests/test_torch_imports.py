@@ -1,6 +1,7 @@
 """Import hygiene of the port and its CUDA-by-default entry points."""
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -9,6 +10,7 @@ import pytest
 import torch
 
 import gi_gs_tpu_torch
+from gi_gs_tpu_torch.ops import cuda_kernels as ck
 
 torch.set_num_threads(1)
 
@@ -67,7 +69,39 @@ def test_no_kernel_is_built_at_import():
                                 "composite_fwd_peak", "composite_bwd",
                                 "reduce_instance_grads", "gi_march",
                                 "gi_march_coherent", "patch_fwd",
-                                "patch_bwd"}
+                                "patch_bwd", "sh_fwd", "sh_bwd"}
+    assert "sh.cu" in ck.SOURCES
+
+
+def _c_declarations():
+    """{name: [parameter types]} of every `GIGS_API` function in csrc/*.cu."""
+    decls = {}
+    for src in sorted(ck.CSRC.glob("*.cu")):
+        text = src.read_text()
+        for m in re.finditer(r"GIGS_API\s+[\w\s\*]+?\b(gigs_\w+)\s*\(([^)]*)\)",
+                             text):
+            decls[m.group(1)] = [" ".join(p.split()[:-1]) for p in
+                                 m.group(2).split(",")]
+    return decls
+
+
+@pytest.mark.parametrize("name", sorted(ck._SIGNATURES))
+def test_ctypes_signature_matches_the_c_declaration(name):
+    """Each ctypes signature has the C launcher's parameters, one for one:
+    a pointer for a pointer, c_int for int, c_float for float (a pointer
+    passed as c_int would be cut to 32 bits on the card)."""
+    decls = _c_declarations()
+    assert name in decls, f"{name} is declared in no csrc/*.cu"
+    want = [ck._P if "*" in t else ck._F if t.endswith("float") else ck._I
+            for t in decls[name]]
+    assert all("*" in t or t.endswith(("int", "float")) for t in decls[name])
+    assert ck._SIGNATURES[name] == want
+
+
+def test_every_launcher_has_a_signature():
+    assert set(_c_declarations()) - set(ck._SIGNATURES) == {
+        "gigs_error_string"}
+    assert {"gigs_sh_fwd", "gigs_sh_bwd"} <= set(ck._SIGNATURES)
 
 
 def test_cuda_default_entry_points_raise_without_gpu(tmp_path):

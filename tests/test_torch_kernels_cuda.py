@@ -1,4 +1,4 @@
-"""The nine CUDA kernels against their plain PyTorch versions on the card
+"""The eleven CUDA kernels against their plain PyTorch versions on the card
 (csrc/*.cu, built at first use), the coherent march's keys against the
 plain offset table included, and the tiled rasterizer against the
 brute-force oracle. Marked `cuda`: they skip without a GPU.
@@ -11,6 +11,7 @@ import torch
 from gi_gs_tpu_torch.ops import cubemap as cm
 from gi_gs_tpu_torch.ops import cuda_kernels as ck
 from gi_gs_tpu_torch.ops import screen_space as ss
+from gi_gs_tpu_torch.ops import sh
 from gi_gs_tpu_torch.ops.rasterize import RasterConfig, binning, composite
 from gi_gs_tpu_torch.ops.rasterize.preprocess import (PreFlat,
                                                       Preprocessed,
@@ -789,3 +790,167 @@ def test_latlong_backward_is_deterministic(dev):
     on the card, at the training shapes (a 256^2 cube, 512x1024)."""
     grads = [_transpose_case("latlong", dev)[1] for _ in range(3)]
     assert all(torch.equal(grads[0], g) for g in grads[1:])
+
+
+SH_N = 1000                 # 7 tiles of 128 slots and a partial one
+# (active degree, stored rest rows): every degree over bicycle's 15 rows,
+# and garden's degree 1 over 3
+SH_CASES = [pytest.param(0, 15, id="deg0"), pytest.param(1, 15, id="deg1"),
+            pytest.param(2, 15, id="deg2"), pytest.param(3, 15, id="deg3"),
+            pytest.param(1, 3, id="deg1_rows3")]
+CLAMP_SLOT, FLOOR_SLOT, ZERO_SLOT = 0, 1, 2
+
+
+def _dc_at_the_clamp() -> float:
+    """An f32 x with f32(C0) * x + 0.5 == 0 exactly (IEEE products and
+    sums round alike on the CPU and the card)."""
+    c0 = torch.tensor(sh.SH_C0, dtype=torch.float32)
+    x = torch.tensor(-0.5, dtype=torch.float32) / c0
+    for _ in range(64):
+        if c0 * x + 0.5 == 0:
+            return float(x)
+        x = torch.nextafter(x, torch.tensor(0.0))
+    raise AssertionError("no dc puts the colour at the clamp")
+
+
+def _sh_inputs(dev, deg, rows, offset=0, seed=0):
+    """features_dc [N, 1, 3], features_rest [N, rows, 3], means [N, 3] and
+    campos [3] on the card (offset > 0: views that start that many slots
+    into larger buffers, off 16-byte alignment), with a colour channel
+    exactly at the clamp (slot 0, channel 1: rest rows 0), a mean at
+    campos (slot 1: the MIN_NORM2 floor), and the colour's incoming
+    gradient as the compositing backward hands it over: columns 6:9 of a
+    column-major [N, 21] gradient, zero in slot 2."""
+    g = torch.Generator(device=dev).manual_seed(seed + 100 * deg + rows)
+    n = SH_N + offset
+    dc = torch.randn((n, 1, 3), device=dev, generator=g)[offset:]
+    rest = 0.3 * torch.randn((n, rows, 3), device=dev, generator=g)
+    rest = rest[offset:]
+    means = 2.0 * torch.randn((n, 3), device=dev, generator=g)[offset:]
+    campos = torch.tensor([0.3, -0.2, 4.0], device=dev)
+    dc[CLAMP_SLOT, 0, 1] = _dc_at_the_clamp()
+    rest[CLAMP_SLOT] = 0.0
+    means[FLOOR_SLOT] = campos
+    table_grad = torch.randn((21, SH_N), device=dev, generator=g).t()
+    table_grad[ZERO_SLOT] = 0.0
+    return dc, rest, means, campos, table_grad[:, 6:9]
+
+
+def _same_bits(name, got, want):
+    bad = got != want
+    assert not bool(bad.any()), (
+        f"{name}: {int(bad.sum())} of {bad.numel()} differ, largest by "
+        f"{float((got - want).abs().max()):.3e}")
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("deg,rows", SH_CASES)
+def test_sh_matches_plain(dev, deg, rows, offset):
+    """`sh_fwd` and `sh_bwd` against the plain twin on the card: the
+    colour and every gradient bit for bit (the kernels take the twin's
+    operations in PyTorch's order, with PyTorch's sum orders, unfused).
+    The incoming gradient strided as on the training path; a tie at the
+    clamp passes half (C0 x g / 2); the zero-gradient slot gets exact
+    zeros; the MIN_NORM2 slot's mean gradient is finite; coefficients
+    past the active degree get zeros. offset 1: inputs off 16-byte
+    alignment (the kernels' one-float copies)."""
+    dc, rest, means, campos, g = _sh_inputs(dev, deg, rows, offset)
+    assert g.stride() == (1, SH_N)
+    if offset:
+        assert rest.data_ptr() % 16 and dc.data_ptr() % 16
+    needs = (True, True, True)
+    out = sh.sh_fwd(deg, dc, rest, means, campos)
+    grads = sh.sh_bwd(deg, g, dc, rest, means, campos, needs)
+    want, saved = sh._sh_fwd_plain(deg, dc, rest, means, campos)
+    ref = sh._sh_bwd_plain(deg, g, saved, needs)
+    assert bool((want == 0).any()) and bool((want > 0).any())
+    _same_bits("colour", out, want)
+    _same_bits("g_dc", grads[0], ref[0])
+    _same_bits("g_rest", grads[1], ref[1])
+    if deg == 0:
+        assert grads[2] is None and ref[2] is None
+    else:
+        _same_bits("g_means", grads[2], ref[2])
+        assert not bool(grads[2][ZERO_SLOT].any())
+        assert bool(torch.isfinite(grads[2][FLOOR_SLOT]).all())
+    assert out[CLAMP_SLOT, 1] == 0
+    assert grads[0][CLAMP_SLOT, 0, 1] == (
+        torch.tensor(sh.SH_C0, dtype=torch.float32) * (0.5 * g[CLAMP_SLOT, 1]))
+    assert not bool(grads[0][ZERO_SLOT].any())
+    assert not bool(grads[1][ZERO_SLOT].any())
+    B = (deg + 1) ** 2
+    assert not bool(grads[1][:, B - 1:].any())
+
+
+def test_sh_takes_a_row_major_gradient_and_partial_needs(dev):
+    """A row-major incoming gradient (columns 6:9 of a contiguous [N, 21])
+    and an expanded one (stride 0) give the bits of the same values
+    handed over contiguous; a gradient not wanted is not written (None),
+    the others unchanged."""
+    dc, rest, means, campos, g = _sh_inputs(dev, 3, 15)
+    rows = torch.zeros((SH_N, 21), device=dev)
+    rows[:, 6:9] = g
+    dense = g.contiguous()
+    needs = (True, True, True)
+    want = sh.sh_bwd(3, dense, dc, rest, means, campos, needs)
+    got = sh.sh_bwd(3, rows[:, 6:9], dc, rest, means, campos, needs)
+    for name, a, b in zip(("g_dc", "g_rest", "g_means"), got, want):
+        _same_bits(name, a, b)
+    ones = torch.ones((), device=dev).expand(SH_N, 3)
+    got = sh.sh_bwd(3, ones, dc, rest, means, campos, needs)
+    want = sh.sh_bwd(3, ones.contiguous(), dc, rest, means, campos, needs)
+    for name, a, b in zip(("g_dc", "g_rest", "g_means"), got, want):
+        _same_bits(name, a, b)
+    part = sh.sh_bwd(3, dense, dc, rest, means, campos, (False, True, False))
+    full = sh.sh_bwd(3, dense, dc, rest, means, campos, needs)
+    assert part[0] is None and part[2] is None
+    _same_bits("g_rest", part[1], full[1])
+
+
+def _device_kernels(fn):
+    """The names of the device kernels fn() runs (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_sh_function_launches_once_each_way(dev):
+    """Through autograd: the colour is one sh_fwd launch and nothing else
+    on the device, its backward one sh_bwd launch and nothing else, and the
+    leaves' gradients are the plain twin's bits."""
+    dc, rest, means, campos, g = _sh_inputs(dev, 3, 15)
+    leaves = [t.detach().clone().requires_grad_() for t in (dc, rest, means)]
+    before = dict(ck.launches)
+    out, fwd = _device_kernels(lambda: sh.sh_to_rgb(3, *leaves, campos))
+    assert ck.launches["sh_fwd"] == before["sh_fwd"] + 2
+    assert ck.launches["sh_bwd"] == before["sh_bwd"]
+    grads, bwd = _device_kernels(
+        lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+    assert ck.launches["sh_fwd"] == before["sh_fwd"] + 2
+    assert ck.launches["sh_bwd"] == before["sh_bwd"] + 2
+    assert len(fwd) == 1 and "sh_fwd_kernel" in fwd[0], fwd
+    assert len(bwd) == 1 and "sh_bwd_kernel" in bwd[0], bwd
+    want, saved = sh._sh_fwd_plain(3, dc, rest, means, campos)
+    ref = sh._sh_bwd_plain(3, g, saved, (True, True, True))
+    _same_bits("colour", out.detach(), want)
+    for name, got, r in zip(("g_dc", "g_rest", "g_means"), grads, ref):
+        _same_bits(name, got, r)
+
+
+def test_sh_launches_once_each_way_per_training_step(dev):
+    """A phase-1 training step on the card launches sh_fwd once and
+    sh_bwd once, step after step."""
+    from test_torch_spans import Scene, make_step, port_cfg
+    state, step = make_step(Scene(dev), 1, port_cfg(), dev)
+    step(state)
+    for _ in range(2):
+        before = dict(ck.launches)
+        step(state)
+        torch.cuda.synchronize()
+        assert (ck.launches["sh_fwd"] - before["sh_fwd"],
+                ck.launches["sh_bwd"] - before["sh_bwd"]) == (1, 1)

@@ -188,3 +188,31 @@ def test_no_concatenation_and_both_spans():
     assert all(e.cpu_parent.name == "aten::stack" for e in cats)
     assert sorted(s.name for s in rec.spans) == ["sh", "sh_bwd"]
     assert p.features_rest.grad.abs().sum() > 0
+
+
+def test_cpu_tensors_take_the_plain_twin():
+    """On CPU tensors the Function runs the plain twin, with the incoming
+    gradient laid out as the compositing table hands it over (columns
+    6:9 of a column-major [N, 21]): no kernel is built or launched, and
+    the colour and gradients are the plain functions' own. The kernels'
+    wrappers refuse CPU tensors instead of falling back."""
+    from gi_gs_tpu_torch.ops import cuda_kernels as ck
+    arrays = inputs(3, seed=7)
+    dc, rest, means, campos = leaves(arrays)
+    table_grad = torch.tensor(np.random.RandomState(8).normal(
+        0, 1, (21, N)).astype(np.float32)).t()
+    g = table_grad[:, 6:9]
+    assert g.stride() == (1, N)
+    out, grads = port(3, dc, rest, means, campos, g)
+    assert ck.launches["sh_fwd"] == 0 and ck.launches["sh_bwd"] == 0
+    assert ck._lib is None
+    x = [t.detach() for t in (dc, rest, means)] + [campos]
+    want, saved = sh._sh_fwd_plain(3, *x)
+    assert torch.equal(out, want)
+    for got, ref in zip(grads, sh._sh_bwd_plain(3, g, saved,
+                                                (True, True, True))):
+        assert torch.equal(got, ref)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        sh.sh_fwd(3, *x)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        sh.sh_bwd(3, g, *x, (True, True, True))
