@@ -118,14 +118,8 @@ Phases (any failure exits non-zero):
                make_phase1_step steps: losses and stats.accum equal. Per
                step ms, collectives and kernel launches. One card: no
                multi-GPU run
- 16. bench     (a) the tiled rasterizer (expand, composite_fwd) against
-               the brute-force oracle `rasterize_bruteforce` on the card
-               (2000 Gaussians, 64x48, 16x64 tiles; rtol 1e-4, atol
-               1e-5); (b) `python -m gi_gs_tpu_torch.bench` in its own
-               process at full size (800x800, 200k Gaussians, capacity
-               2^18): its JSON line printed and checked (finite loss,
-               all 8 stages timed, the exact march within 1e-6 of its
-               plain version, 10 kernels launched in that process)
+ 16. (no phase: the card test test_tiled_rasterize_matches_bruteforce_oracle
+               holds the tiled rasterizer against the brute-force oracle)
  17. quality  the quality gate's reduced configs on the card
                (`gi_gs_tpu_torch.quality_gate`; tests/test_quality.py's
                sizes and bars): phase 1 at 64 px, 1200 steps on 16 ring
@@ -189,8 +183,6 @@ COLMAP_P1_STEPS = 6
 COLMAP_P2_STEPS = 6
 PAR_STEPS = 3
 TILE_RANGES = 4
-ORACLE_N = 2000
-BENCH_TIMEOUT_S = 600
 
 
 def fail(msg: str) -> None:
@@ -965,10 +957,6 @@ def main() -> None:
                                   train_data, card)
     del train_res
 
-    # -- 16. the brute-force oracle, then the port bench ---------------------
-    oracle_phase(torch, dev, ck, np.random.RandomState(args.seed + 6))
-    _, bench_launches = bench_phase(torch)
-
     # -- 17. the quality gate's reduced configs ------------------------------
     gate_launches = quality_phase(torch, dev, ck, card)
 
@@ -989,7 +977,6 @@ def main() -> None:
         e["launches_in_argmax_render"] = argmax_launches[e["name"]]
         e["launches_in_colmap_training"] = colmap_launches[e["name"]]
         e["launches_in_parallel_steps"] = par_launches[e["name"]]
-        e["launches_in_bench"] = bench_launches[e["name"]]
         e["launches_in_quality_gate"] = gate_launches[e["name"]]
         e["launches_in_dryrun"] = dryrun_launches[e["name"]]
         if e["name"] in ranges:
@@ -2318,142 +2305,6 @@ def parity_phase(torch, dev, config_mod, render_cli, params_from_numpy, rng):
     kp = max(peak_worst, key=peak_worst.get)
     return (f"{k} {worst[k]:.2e}; argmax render: worst key {kp} "
             f"{peak_worst[kp]:.2e}")
-
-
-def oracle_phase(torch, dev, ck, rng):
-    """The tiled rasterizer on the card (`expand` and `composite_fwd`)
-    against the brute-force oracle (`reference.rasterize_bruteforce`,
-    plain torch, one Gaussian at a time in global depth order) on the
-    card: ORACLE_N Gaussians drawn as tests/utils.random_scene draws them,
-    64x48, 16x64 tiles. Tolerance of tests/test_rasterize.py: every
-    accumulator within rtol 1e-4 and atol 1e-5 (final T rtol 1e-5, atol
-    1e-6)."""
-    from gi_gs_tpu_torch.ops.rasterize import RasterConfig
-    from gi_gs_tpu_torch.ops.rasterize.pipeline import rasterize
-    from gi_gs_tpu_torch.ops.rasterize.preprocess import preprocess
-    from gi_gs_tpu_torch.ops.rasterize.reference import rasterize_bruteforce
-    from gi_gs_tpu_torch.scene.cameras import make_camera
-    from gi_gs_tpu_torch.utils.math_utils import build_covariance_3d
-    n, w, h, fov = ORACLE_N, 64, 48, 1.0
-    cam = make_camera(np.eye(3), np.zeros(3), fov, fov, w, h, device=dev)
-    z = rng.uniform(1.0, 5.0, (n, 1))
-    lim = np.tan(fov / 2) * 0.9
-    xy = rng.uniform(-lim, lim, (n, 2)) * z
-    quat = rng.normal(size=(n, 4))
-    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    xyz = t(np.concatenate([xy, z], 1))
-    cov3d = build_covariance_3d(torch.exp(t(rng.uniform(-3.5, -2.0, (n, 3)))),
-                                t(quat))
-    op = t(rng.uniform(0.05, 0.95, (n, 1)))
-    f = t(rng.uniform(0.0, 1.0, (n, 11)))
-    color, normal, albedo = f[:, 0:3], f[:, 3:6] * 2.0 - 1.0, f[:, 6:9]
-    rough, metal = f[:, 9:10], f[:, 10:11]
-    cfg = RasterConfig(cap_instances=1 << 16)
-    args = (cam.w2c, cam.full_proj, cam.tanfovx, cam.tanfovy)
-    with torch.inference_mode():
-        ck.reset_launches()
-        out = rasterize(xyz, cov3d, op, color, normal, albedo, rough, metal,
-                        *args, h, w, torch.zeros(3, device=dev), cfg)
-        torch.cuda.synchronize()
-        launched = dict(ck.launches)
-        if launched["expand"] != 1 or launched["composite_fwd"] != 1:
-            fail(f"the tiled oracle check launched {launched}")
-        if int(out.overflow):
-            fail("the oracle scene overflowed cap_instances")
-        pre = preprocess(xyz, cov3d, *args, w, h, cfg)
-        feats = torch.cat([color, torch.ones_like(rough), normal, albedo,
-                           rough, metal, pre.depth[:, None], pre.pos_view], 1)
-        t0 = time.time()
-        acc, final_t = rasterize_bruteforce(xyz, cov3d, op, feats, *args, h,
-                                            w, cfg)
-        torch.cuda.synchronize()
-        t_oracle = time.time() - t0
-    o = acc[3]
-    ok_o = o > 1e-6
-    depth = torch.where(ok_o, acc[12] / torch.where(ok_o, o, 1.0), 0.0)
-    pairs = {"final_t": (out.final_t[0], final_t, 1e-5, 1e-6),
-             "color": (out.color, acc[0:3], 1e-4, 1e-5),
-             "opacity": (out.opacity[0], o, 1e-4, 1e-5),
-             "normal": (out.normal, acc[4:7], 1e-4, 1e-5),
-             "albedo": (out.albedo, acc[7:10], 1e-4, 1e-5),
-             "roughness": (out.roughness[0], acc[10], 1e-4, 1e-5),
-             "metallic": (out.metallic[0], acc[11], 1e-4, 1e-5),
-             "depth": (out.depth[0], depth, 1e-4, 1e-5)}
-    errs = {}
-    for key, (got, want, rtol, atol) in pairs.items():
-        diff = (got - want).abs()
-        errs[key] = float(diff.max())
-        if bool((diff > atol + rtol * want.abs()).any()):
-            fail(f"oracle: tiled {key} differs from the brute-force oracle "
-                 f"by {errs[key]:.3e} (rtol {rtol}, atol {atol})")
-    log(f"[oracle] tiled rasterize (expand, composite_fwd) vs "
-        f"rasterize_bruteforce on the card: {n} Gaussians, {w}x{h}, tiles "
-        f"{cfg.tile_h}x{cfg.tile_w}; covered pixels "
-        f"{int((o > 1e-3).sum())}/{w * h}, min final T "
-        f"{float(final_t.min()):.3g}; max |tiled - oracle| {errs} "
-        f"(rtol 1e-4, atol 1e-5; final T rtol 1e-5, atol 1e-6); oracle "
-        f"{t_oracle:.2f} s")
-    if not 0.0 < float(final_t.min()) < 0.5:
-        fail("the oracle scene is empty or saturated")
-
-
-# the kernels the port bench's run must launch: all but composite_fwd_peak
-BENCH_KERNELS = ("expand", "composite_fwd", "composite_bwd",
-                 "reduce_instance_grads", "gi_march", "gi_march_coherent",
-                 "patch_fwd", "patch_bwd", "sh_fwd", "sh_bwd")
-BENCH_PARITY_BOUND = 1e-6
-
-
-def bench_phase(torch):
-    """`python -m gi_gs_tpu_torch.bench` in a process of its own on the
-    card at full size. Its one stdout line is parsed and checked: a finite
-    loss, every stage timed (none skipped, ms > 0), the exact march's
-    SSAO within BENCH_PARITY_BOUND of its plain version's (16 f32 ulps of
-    a value near 1: the kernel sums the directions in another order than
-    the plain march, tests/test_torch_kernels_cuda.py), and each of
-    BENCH_KERNELS launched in that process (its stderr's "kernel
-    launches:" line). Returns (result, launches)."""
-    torch.cuda.empty_cache()
-    t0 = time.time()
-    res = subprocess.run([sys.executable, "-m", "gi_gs_tpu_torch.bench"],
-                         cwd=REPO, capture_output=True, text=True,
-                         timeout=BENCH_TIMEOUT_S)
-    wall = time.time() - t0
-    for line in res.stderr.splitlines():
-        log("  " + line)
-    if res.returncode != 0:
-        fail(f"the bench exited {res.returncode}")
-    lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
-    if len(lines) != 1:
-        fail(f"the bench printed {len(lines)} lines on stdout, not 1")
-    result = json.loads(lines[0])
-    tag = "kernel launches: "
-    found = [ln.split(tag, 1)[1] for ln in res.stderr.splitlines()
-             if tag in ln]
-    if not found:
-        fail("the bench logged no kernel launch counts")
-    launches = json.loads(found[-1])
-    ex = result["extra"]
-    log(f"[bench] python -m gi_gs_tpu_torch.bench in {wall:.1f} s: "
-        f"phase 1 {result['value']} it/s, phase 2 "
-        f"{ex['phase2_iters_per_s']} it/s, {ex['n_instances']} instances, "
-        f"device {ex['device']!r}; launches {launches}")
-    log(json.dumps(result))
-    if not ex["loss_finite"]:
-        fail("the bench's loss is not finite")
-    bad = [k for k, row in ex["stages"].items()
-           if row.get("skipped_for_budget") or not row["ms"] > 0]
-    if bad or len(ex["stages"]) != 8:
-        fail(f"bench stages skipped or untimed: {bad or ex['stages']}")
-    diff = ex["cuda_parity"].get("ssao_exact_vs_oracle_maxdiff")
-    if diff is None or not diff <= BENCH_PARITY_BOUND:
-        fail(f"bench parity: gi_march vs its plain version {diff} "
-             f"(bound {BENCH_PARITY_BOUND})")
-    missing = [k for k in BENCH_KERNELS if not launches.get(k)]
-    if missing:
-        fail(f"the bench launched no {missing}")
-    return result, launches
 
 
 # the kernels of both training phases, which the reduced gates must launch

@@ -413,7 +413,7 @@ def patch_fwd(W: torch.Tensor, padded: torch.Tensor, R: int, P: int,
     if W.data_ptr() % 16:
         raise ValueError("patch_fwd: W is not 16-byte aligned")
     out = torch.empty((6, 3, R, R), dtype=torch.float32, device=dev)
-    ck.launch("patch_fwd", "gigs_patch_fwd", dev, W.data_ptr(),
+    ck.launch("patch_fwd", dev, W.data_ptr(),
               padded.data_ptr(), out.data_ptr(), R, P, h,
               patch_fwd_shape(R, h)["stages"])
     return out
@@ -439,7 +439,7 @@ def patch_bwd(W: torch.Tensor, g: torch.Tensor, R: int, P: int,
     if W.data_ptr() % 16:
         raise ValueError("patch_bwd: W is not 16-byte aligned")
     out = torch.empty((6, 3, E, E), dtype=torch.float32, device=dev)
-    ck.launch("patch_bwd", "gigs_patch_bwd", dev, W.data_ptr(), g.data_ptr(),
+    ck.launch("patch_bwd", dev, W.data_ptr(), g.data_ptr(),
               out.data_ptr(), R, P, h)
     return out
 

@@ -1,11 +1,17 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources in `gi_gs_tpu_torch/csrc/*.cu` have a plain C interface. At
-the first CUDA call they are compiled by nvcc for sm_90a, one process per
-source started together, linked into one shared library under
+the first CUDA call every one of them is compiled by nvcc for sm_90a, one
+process per source started together, linked into one shared library under
 `build/torch_kernels/` (keyed by a hash of sources and flags) and loaded
-with ctypes. Nothing here runs at import time: the CPU tests import every
+with ctypes. Nothing is built at import time: the CPU tests import every
 module of the package on a machine without nvcc.
+
+The sources' `GIGS_API` declarations are the registry: they give each C
+function's ctypes argument types (`signatures`), and each launcher that is
+neither a `_resources` query nor `gigs_error_string` is a kernel, counted
+in `launches` under its name without the `gigs_` prefix. A new kernel is
+a .cu file with its launcher and a Python wrapper that calls `launch`.
 
 `launches` counts, per kernel, the launches made by its wrapper; a run
 sets the counts to 0 (`reset_launches`) and reads them afterwards to show
@@ -17,71 +23,77 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("expand.cu", "composite_fwd.cu", "composite_bwd.cu",
-           "reduce_instance_grads.cu", "gi_march.cu", "gi_march_coherent.cu",
-           "patch_fwd.cu", "patch_bwd.cu", "sh.cu")
 # -fmad=false: no multiply-add contraction, so each kernel rounds like its
 # plain PyTorch version (the exact f32 tile cull of `expand` and the bits
 # of `sh_fwd` / `sh_bwd` rely on it).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
-KERNELS = ("expand", "composite_fwd", "composite_fwd_peak", "composite_bwd",
-           "reduce_instance_grads", "gi_march", "gi_march_coherent",
-           "patch_fwd", "patch_bwd", "sh_fwd", "sh_bwd")
-launches: Dict[str, int] = {k: 0 for k in KERNELS}
+_DECL = re.compile(r"GIGS_API\s+[\w\s*]+?\b(gigs_\w+)\s*\(([^)]*)\)")
+_CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def sources(csrc: Path = CSRC) -> List[Path]:
+    """The library's sources: every .cu file in `csrc`."""
+    return sorted(csrc.glob("*.cu"))
+
+
+def parse_declarations(csrc: Path) -> Dict[str, Tuple[type, ...]]:
+    """{C name: ctypes argument types} of every `GIGS_API` function in
+    `csrc`'s .cu files: a pointer is c_void_p (as c_int it would be cut to
+    32 bits), `int` c_int, `float` c_float; any other parameter raises."""
+    decls = {}
+    for src in sources(csrc):
+        for name, params in _DECL.findall(src.read_text()):
+            args = []
+            for p in params.split(","):
+                ctype = " ".join(re.sub(r"\w+\s*$", "", p).split())
+                if "*" in ctype:
+                    args.append(ctypes.c_void_p)
+                elif ctype in _CTYPES:
+                    args.append(_CTYPES[ctype])
+                else:
+                    raise ValueError(f"{src.name}: {name} has a parameter of "
+                                     f"type {ctype!r} (pointer, int or "
+                                     f"float only)")
+            decls[name] = tuple(args)
+    return decls
+
+
+@functools.lru_cache(maxsize=None)
+def signatures() -> Dict[str, Tuple[type, ...]]:
+    """The ctypes argument types of every C function of the library: the
+    `GIGS_API` declarations in csrc/*.cu, read once."""
+    return parse_declarations(CSRC)
+
+
+# every launcher but the `_resources` queries and the error string
+launches: Dict[str, int] = {
+    name[len("gigs_"):]: 0 for name in signatures()
+    if not name.endswith("_resources") and name != "gigs_error_string"}
 
 _lib: Optional[ctypes.CDLL] = None
+# kernel -> its C launcher, resolved when the library loads
+_launchers: Dict[str, Callable[..., int]] = {}
 _lock = threading.Lock()
 # (kernel, start event, end event) per launch while `timed()` is active
 _events: Optional[List[Tuple[str, torch.cuda.Event, torch.cuda.Event]]] = None
 build_log: str = ""
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-_SIGNATURES = {
-    "gigs_expand": [_I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
-    "gigs_composite_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                           _F, _F, _P, _P, _P],
-    "gigs_composite_fwd_peak": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                _F, _F, _P, _P, _P, _P],
-    "gigs_composite_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _I, _I, _I, _I, _F, _F, _F, _P, _P],
-    "gigs_reduce_instance_grads": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-                                   _P, _P],
-    "gigs_gi_march": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F,
-                      _F, _F, _I, _I, _P, _P, _P],
-    "gigs_gi_march_coherent": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
-                               _F, _F, _F, _F, _I, _I, _P, _P, _P, _P],
-    "gigs_patch_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
-    "gigs_patch_bwd": [_I, _P, _P, _P, _I, _I, _I, _P],
-    "gigs_sh_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    "gigs_sh_bwd": [_I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-                    _P],
-    "gigs_composite_fwd_resources": [_I, _I, _I, _I, _P],
-    "gigs_composite_bwd_resources": [_I, _I, _I, _P],
-    "gigs_gi_march_resources": [_I, _I, _I, _P],
-    "gigs_gi_march_coherent_resources": [_I, _I, _I, _I, _P],
-    "gigs_reduce_instance_grads_resources": [_I, _P],
-    "gigs_expand_resources": [_I, _P],
-    "gigs_patch_fwd_resources": [_I, _I, _I, _I, _P],
-    "gigs_patch_bwd_resources": [_I, _I, _I, _P],
-    "gigs_sh_resources": [_I, _I, _I, _P],
-}
 RESOURCE_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
                  "threads", "blocks_per_sm", "local_bytes", "cluster_size",
                  "active_clusters")
@@ -139,10 +151,10 @@ def build() -> Path:
     nvcc = nvcc_path()
     tag = f"{os.getpid()}"
     procs = []
-    for src in SOURCES:
-        obj = BUILD_DIR / f"{Path(src).stem}.{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(
+    for src in sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        procs.append((src.name, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     logs, failed = [], []
@@ -173,19 +185,21 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name, args in _SIGNATURES.items():
+            for name, args in signatures().items():
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
-            lib.gigs_error_string.argtypes = [ctypes.c_int]
             lib.gigs_error_string.restype = ctypes.c_char_p
+            _launchers.update({k: getattr(lib, f"gigs_{k}") for k in launches})
             _lib = lib
     return _lib
 
 
-def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
-    """Call one C launcher on `device`'s current stream, raise on a launch
-    error, and count the launch."""
+def launch(kernel: str, device: torch.device, *args) -> None:
+    """Call the C launcher `gigs_<kernel>` on `device`'s current stream,
+    raise on a launch error, and count the launch."""
+    if kernel not in launches:
+        raise ValueError(f"no csrc/*.cu declares a launcher gigs_{kernel}")
     lib = library()
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
@@ -193,7 +207,7 @@ def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
     if _events is not None:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record(stream)
-    err = getattr(lib, fn_name)(idx, *args, stream.cuda_stream)
+    err = _launchers[kernel](idx, *args, stream.cuda_stream)
     if _events is not None:
         end.record(stream)
         _events.append((kernel, start, end))
@@ -207,6 +221,8 @@ def resources(fn_name: str, device: torch.device, *args) -> Dict[str, int]:
     """A kernel's registers, shared memory and resident blocks per SM at a
     launch shape, from its C query `fn_name` (`RESOURCE_KEYS`; 0 where the
     kernel does not report a key). Launches nothing and counts nothing."""
+    if fn_name not in signatures():
+        raise ValueError(f"no csrc/*.cu declares {fn_name}")
     lib = library()
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()

@@ -145,7 +145,7 @@ def expand(pre: Preprocessed, height: int, width: int, cfg: RasterConfig):
     tile = torch.empty(cap, dtype=torch.int32, device=dev)
     depth = torch.empty(cap, dtype=torch.float32, device=dev)
     gid = torch.empty(cap, dtype=torch.int32, device=dev)
-    ck.launch("expand", "gigs_expand", dev,
+    ck.launch("expand", dev,
               offsets.data_ptr(), n, *[c.data_ptr() for c in cols_i],
               *[c.data_ptr() for c in cols_f],
               cap, tx_tiles, ty_tiles * tx_tiles, cfg.tile_w, cfg.tile_h,

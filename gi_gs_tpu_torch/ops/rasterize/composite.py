@@ -316,7 +316,7 @@ def composite_fwd(table: torch.Tensor, ids: torch.Tensor,
     if T == 0:
         return outs
     name = "composite_fwd_peak" if peak else "composite_fwd"
-    ck.launch(name, f"gigs_{name}", dev,
+    ck.launch(name, dev,
               table.data_ptr(), ids.data_ptr(), tile_start.data_ptr(),
               tile_count.data_ptr(), T, *(() if peak else (tile_base,)),
               cfg.chunks_per_tile * cfg.chunk, grid[1], cfg.tile_w,
@@ -474,7 +474,7 @@ def composite_bwd(table, ids, tile_start, tile_count, accum4, final_t,
     if T == 0:
         return rows
     H, W = image_hw
-    ck.launch("composite_bwd", "gigs_composite_bwd", dev,
+    ck.launch("composite_bwd", dev,
               table.data_ptr(), ids.data_ptr(), tile_start.data_ptr(),
               tile_count.data_ptr(), accum4.data_ptr(), final_t.data_ptr(),
               g_acc.data_ptr(), g_t.data_ptr(), T, tile_base,
@@ -536,7 +536,7 @@ def reduce_sorted_instance_grads(g_sorted: torch.Tensor, inv_perm,
     loc = torch.empty((TABLE_DIM, cap), **f32)
     tops = torch.empty((TABLE_DIM, log_chunk + 1, chunks), **f32)
     lefts = torch.empty((TABLE_DIM, log_chunk, chunks), **f32)
-    ck.launch("reduce_instance_grads", "gigs_reduce_instance_grads", dev,
+    ck.launch("reduce_instance_grads", dev,
               g_sorted.data_ptr(), inv_perm.data_ptr(), offsets.data_ptr(),
               n, cap, log_chunk, loc.data_ptr(), tops.data_ptr(),
               lefts.data_ptr(), out.data_ptr())

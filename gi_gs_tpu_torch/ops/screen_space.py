@@ -290,7 +290,7 @@ def gi_march(normal_view: torch.Tensor, pos: torch.Tensor,
     occ = torch.empty((H, W), dtype=torch.float32, device=dev)
     dif = (torch.empty((3, H, W), dtype=torch.float32, device=dev)
            if rgb is not None else torch.zeros((3, H, W), device=dev))
-    ck.launch("gi_march", "gigs_gi_march", dev,
+    ck.launch("gi_march", dev,
               normal_view.data_ptr(), pos.data_ptr(),
               rgb.data_ptr() if rgb is not None else None, tab.data_ptr(),
               tab.shape[0], H, W, float(np.float32(fx)),
@@ -459,7 +459,7 @@ def gi_march_coherent(normal_view: torch.Tensor, pos: torch.Tensor,
     occ = torch.empty((H, W), dtype=torch.float32, device=dev)
     dif = (torch.empty((3, H, W), dtype=torch.float32, device=dev)
            if rgb is not None else torch.zeros((3, H, W), device=dev))
-    ck.launch("gi_march_coherent", "gigs_gi_march_coherent", dev,
+    ck.launch("gi_march_coherent", dev,
               normal_view.data_ptr(), pos.data_ptr(),
               rgb.data_ptr() if rgb is not None else None, tab.data_ptr(),
               tab.shape[0], H, W, float(np.float32(fx)),

@@ -171,7 +171,7 @@ def sh_fwd(deg: int, dc, rest, means, campos) -> torch.Tensor:
     """The clamped colour [N, 3] of CUDA tensors: one `sh_fwd` launch."""
     dc, rest, means, campos, n, rows = _inputs(dc, rest, means, campos)
     rgb = torch.empty((n, 3), dtype=torch.float32, device=means.device)
-    ck.launch("sh_fwd", "gigs_sh_fwd", means.device, dc.data_ptr(),
+    ck.launch("sh_fwd", means.device, dc.data_ptr(),
               rest.data_ptr(), means.data_ptr(), campos.data_ptr(), n, deg,
               rows, rgb.data_ptr())
     return rgb
@@ -191,7 +191,7 @@ def sh_bwd(deg: int, g, dc, rest, means, campos, needs: Sequence[bool]
     out = [torch.empty_like(t) if w else None
            for t, w in zip((dc, rest, means), want)]
     if any(want):
-        ck.launch("sh_bwd", "gigs_sh_bwd", dev, g.data_ptr(), g.stride(0),
+        ck.launch("sh_bwd", dev, g.data_ptr(), g.stride(0),
                   g.stride(1), dc.data_ptr(), rest.data_ptr(),
                   means.data_ptr(), campos.data_ptr(), n, deg, rows,
                   *(0 if t is None else t.data_ptr() for t in out))

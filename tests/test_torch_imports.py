@@ -1,4 +1,5 @@
 """Import hygiene of the port and its CUDA-by-default entry points."""
+import ctypes
 import os
 import pkgutil
 import re
@@ -41,8 +42,7 @@ def test_port_imports_without_jax_or_reference_package():
             "gi_gs_tpu_torch.parallel.tile_sharded",
             "gi_gs_tpu_torch.ops.bsdf", "gi_gs_tpu_torch.utils.profiling",
             "gi_gs_tpu_torch.cli.network_gui"} <= set(mods)
-    assert {"gi_gs_tpu_torch.bench",
-            "gi_gs_tpu_torch.ops.rasterize.reference"} <= set(mods)
+    assert "gi_gs_tpu_torch.ops.rasterize.reference" in mods
     assert {"gi_gs_tpu_torch.quality_gate",
             "gi_gs_tpu_torch.dryrun"} <= set(mods)
     code = (
@@ -70,11 +70,12 @@ def test_no_kernel_is_built_at_import():
                                 "reduce_instance_grads", "gi_march",
                                 "gi_march_coherent", "patch_fwd",
                                 "patch_bwd", "sh_fwd", "sh_bwd"}
-    assert "sh.cu" in ck.SOURCES
+    assert "sh.cu" in {p.name for p in ck.sources()}
 
 
 def _c_declarations():
-    """{name: [parameter types]} of every `GIGS_API` function in csrc/*.cu."""
+    """{name: [parameter types]} of every `GIGS_API` function in csrc/*.cu,
+    read independently of the registry's parser."""
     decls = {}
     for src in sorted(ck.CSRC.glob("*.cu")):
         text = src.read_text()
@@ -85,23 +86,51 @@ def _c_declarations():
     return decls
 
 
-@pytest.mark.parametrize("name", sorted(ck._SIGNATURES))
+@pytest.mark.parametrize("name", sorted(_c_declarations()))
 def test_ctypes_signature_matches_the_c_declaration(name):
-    """Each ctypes signature has the C launcher's parameters, one for one:
-    a pointer for a pointer, c_int for int, c_float for float (a pointer
-    passed as c_int would be cut to 32 bits on the card)."""
-    decls = _c_declarations()
-    assert name in decls, f"{name} is declared in no csrc/*.cu"
-    want = [ck._P if "*" in t else ck._F if t.endswith("float") else ck._I
-            for t in decls[name]]
-    assert all("*" in t or t.endswith(("int", "float")) for t in decls[name])
-    assert ck._SIGNATURES[name] == want
+    """The registry's ctypes signature of each C function has the C
+    declaration's parameters, one for one: a pointer for a pointer, c_int
+    for int, c_float for float (a pointer passed as c_int would be cut to
+    32 bits on the card)."""
+    decl = _c_declarations()[name]
+    want = [ctypes.c_void_p if "*" in t else
+            ctypes.c_float if t.endswith("float") else ctypes.c_int
+            for t in decl]
+    assert all("*" in t or t.endswith(("int", "float")) for t in decl)
+    assert list(ck.signatures()[name]) == want
 
 
 def test_every_launcher_has_a_signature():
-    assert set(_c_declarations()) - set(ck._SIGNATURES) == {
+    decls = set(_c_declarations())
+    assert set(ck.signatures()) == decls
+    assert {f"gigs_{k}" for k in ck.launches} == {
+        n for n in decls if not n.endswith("_resources")} - {
         "gigs_error_string"}
-    assert {"gigs_sh_fwd", "gigs_sh_bwd"} <= set(ck._SIGNATURES)
+    assert {"gigs_sh_fwd", "gigs_sh_bwd"} <= set(ck.signatures())
+    assert {p.name for p in ck.sources()} == {
+        p.name for p in ck.CSRC.iterdir() if p.suffix == ".cu"}
+
+
+def test_registry_raises_on_what_csrc_does_not_declare(tmp_path):
+    """A parameter type other than a pointer, int or float raises, naming
+    the function and the type; so does a launch or a resource query of a
+    function no source declares (before any build)."""
+    (tmp_path / "ok.cu").write_text(
+        "GIGS_API int gigs_ok(int device, const float *x, float a,\n"
+        "                     void* stream) {\n")
+    assert ck.parse_declarations(tmp_path) == {
+        "gigs_ok": (ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
+                    ctypes.c_void_p)}
+    (tmp_path / "bad.cu").write_text(
+        "GIGS_API int gigs_bad(int device, double scale, void* stream) {\n")
+    with pytest.raises(ValueError, match=r"gigs_bad .*'double'"):
+        ck.parse_declarations(tmp_path)
+    dev = torch.device("cuda")
+    with pytest.raises(ValueError, match="gigs_no_such_kernel"):
+        ck.launch("no_such_kernel", dev)
+    with pytest.raises(ValueError, match="gigs_no_such_resources"):
+        ck.resources("gigs_no_such_resources", dev)
+    assert ck._lib is None or torch.cuda.is_available()
 
 
 def test_cuda_default_entry_points_raise_without_gpu(tmp_path):

@@ -4,6 +4,8 @@ plain offset table included, and the tiled rasterizer against the
 brute-force oracle. Marked `cuda`: they skip without a GPU.
 On a machine with one (without JAX, so skip the tests' conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py"""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -113,19 +115,29 @@ def test_composite_matches_plain(dev):
     torch.testing.assert_close(kt, pt, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("tile_h,tile_w", [(16, 64), (8, 32)])
-def test_tiled_rasterize_matches_bruteforce_oracle(dev, tile_h, tile_w):
+# (seed, Gaussians, width, height, fov x, fov y, half-width of the x/y
+# draw over z): a 96x64 scene, and a denser 64x48 one at fov 1.0
+ORACLE_SCENES = {"96x64": (3, 1500, 96, 64, 1.0, 0.7, 0.45),
+                 "64x48": (6, 2000, 64, 48, 1.0, 1.0, 0.9 * math.tan(0.5))}
+
+
+@pytest.mark.parametrize("tile_h,tile_w,scene", [(16, 64, "96x64"),
+                                                 (8, 32, "96x64"),
+                                                 (16, 64, "64x48")])
+def test_tiled_rasterize_matches_bruteforce_oracle(dev, tile_h, tile_w,
+                                                   scene):
     """The tiled rasterizer on the card (`expand`, `composite_fwd`) against
     the brute-force oracle on the card, at tests/test_rasterize.py's
-    tolerances (rtol 1e-4, atol 1e-5; final T rtol 1e-5, atol 1e-6)."""
+    tolerances: every accumulator and the depth (where the opacity exceeds
+    1e-6) within rtol 1e-4, atol 1e-5; final T rtol 1e-5, atol 1e-6."""
     from gi_gs_tpu_torch.ops.rasterize.pipeline import rasterize
     from gi_gs_tpu_torch.ops.rasterize.reference import rasterize_bruteforce
-    rng = np.random.RandomState(3)
-    n, w, h = 1500, 96, 64
-    cam = make_camera(np.eye(3), np.zeros(3), 1.0, 0.7, w, h, device=dev)
+    seed, n, w, h, fovx, fovy, lim = ORACLE_SCENES[scene]
+    rng = np.random.RandomState(seed)
+    cam = make_camera(np.eye(3), np.zeros(3), fovx, fovy, w, h, device=dev)
     z = rng.uniform(1, 5, (n, 1))
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
-    xyz = t(np.concatenate([rng.uniform(-0.45, 0.45, (n, 2)) * z, z], 1))
+    xyz = t(np.concatenate([rng.uniform(-lim, lim, (n, 2)) * z, z], 1))
     q = rng.normal(size=(n, 4))
     cov = build_covariance_3d(t(np.exp(rng.uniform(-3.5, -2.0, (n, 3)))),
                               t(q / np.linalg.norm(q, axis=1, keepdims=True)))
@@ -149,7 +161,9 @@ def test_tiled_rasterize_matches_bruteforce_oracle(dev, tile_h, tile_w):
     for got, want in ((out.color, acc[0:3]), (out.opacity[0], acc[3]),
                       (out.normal, acc[4:7]), (out.albedo, acc[7:10]),
                       (out.roughness[0], acc[10]),
-                      (out.metallic[0], acc[11])):
+                      (out.metallic[0], acc[11]),
+                      (out.depth[0], torch.where(acc[3] > 1e-6, acc[12] / (
+                          acc[3].clamp(min=1e-6)), 0.0))):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 

@@ -2,6 +2,7 @@
 reference on the same numpy-seeded scenes, on the CPU: the plain PyTorch
 versions of the expand and composite kernels are what CUDA tensors would
 send to csrc/expand.cu and csrc/composite_fwd.cu."""
+import dataclasses
 import math
 import os
 
@@ -20,12 +21,17 @@ from gi_gs_tpu.ops.rasterize.preprocess import \
     Preprocessed as JaxPreprocessed
 from gi_gs_tpu.ops.rasterize.preprocess import preprocess as jax_preprocess
 
+from gi_gs_tpu_torch import config as cfg_mod
+from gi_gs_tpu_torch.models.gaussians import create_from_points
 from gi_gs_tpu_torch.ops.rasterize import RasterConfig
 from gi_gs_tpu_torch.ops.rasterize import binning, composite, pipeline
 from gi_gs_tpu_torch.ops.rasterize.preprocess import (PreFlat,
                                                       Preprocessed,
                                                       preprocess)
+from gi_gs_tpu_torch.scene.cameras import make_camera
+from gi_gs_tpu_torch.train import trainer
 
+import bench_scene
 import expand_cases
 from utils import random_scene
 
@@ -222,18 +228,49 @@ def test_rasterize_matches_golden():
                                atol=1e-5)
 
 
-def test_capacity_bucket_and_count():
-    s, jp, tp = _both(0)
+@pytest.mark.parametrize("scene", ["random", "root_bench"])
+def test_capacity_bucket_and_count(scene):
+    """The port's instance count against JAX's. On the root bench's scene
+    (tests/bench_scene.py, default 16x64 tiles) also the capacity bucket
+    the port probes on its own init of the same points, and the binned
+    count after expand's exact f32 cull, against JAX's XLA expand (its
+    Pallas expand slacks the cull for bf16 inputs and keeps more)."""
     from gi_gs_tpu.ops.rasterize.pipeline import (
         bucket_cap_instances as jax_bucket, count_instances as jax_count)
-    cam, w, h = s["cam"], s["width"], s["height"]
-    n_j = int(jax_count(s["xyz"], s["cov3d"], cam.w2c, cam.full_proj,
-                        cam.tanfovx, cam.tanfovy, h, w, JCFG,
-                        opacity=s["opacity"]))
-    n_t = pipeline.count_instances(
-        _t(s["xyz"]), _t(s["cov3d"]), _t(cam.w2c), _t(cam.full_proj),
-        float(cam.tanfovx), float(cam.tanfovy), h, w, CFG,
-        opacity=_t(s["opacity"]))
+    if scene == "random":
+        s, _, _ = _both(0)
+        xyz, cov3d, opacity = s["xyz"], s["cov3d"], s["opacity"]
+        cam, w, h = s["cam"], s["width"], s["height"]
+        jcfg, cfg = JCFG, CFG
+    else:
+        jcfg, jparams, cam = bench_scene.jax_scene()[:3]
+        xyz, cov3d = jparams.xyz, jparams.get_covariance(1.0)
+        opacity = jparams.get_opacity()
+        w, h = cam.width, cam.height
+        jcfg = dataclasses.replace(jcfg.raster, use_pallas=False,
+                                   expand_backend="xla")
+        cfg = RasterConfig(cap_instances=jcfg.cap_instances)
+    targs = (_t(xyz), _t(cov3d), _t(cam.w2c), _t(cam.full_proj),
+             float(cam.tanfovx), float(cam.tanfovy))
+    n_j = int(jax_count(xyz, cov3d, cam.w2c, cam.full_proj, cam.tanfovx,
+                        cam.tanfovy, h, w, jcfg, opacity=opacity))
+    n_t = pipeline.count_instances(*targs, h, w, cfg, opacity=_t(opacity))
     assert n_t == n_j
+    if scene == "root_bench":
+        pts, cols = bench_scene.points()
+        params = create_from_points(pts, cols, bench_scene.SIZE["CAP"],
+                                    device="cpu")
+        pcam = make_camera(np.eye(3), np.zeros(3), 0.8, 0.8, w, h,
+                           device="cpu")
+        assert trainer.probe_cap_instances(cfg_mod.Config(), params, [pcam]) == \
+            cfg.cap_instances
+        jb = jax_bin_and_sort(jax_preprocess(
+            xyz, cov3d, cam.w2c, cam.full_proj, cam.tanfovx, cam.tanfovy, w,
+            h, jcfg, opacity=opacity), h, w, jcfg)
+        tb = binning.bin_and_sort(preprocess(*targs, w, h, cfg,
+                                             opacity=_t(opacity)), h, w, cfg)
+        n_binned = int(tb.tile_count.sum())
+        assert n_binned == int(np.asarray(jb.tile_count).sum()) > 0
+        assert not int(tb.overflow)
     for k in (1, 65535, 65536, 525861, 3_000_000):
         assert pipeline.bucket_cap_instances(k) == jax_bucket(k)

@@ -130,7 +130,7 @@ def build(ck, root: str):
         print(f"[build] {name}: {regs}", flush=True)
         lib = ctypes.CDLL(so)
         for fn in ("gigs_composite_fwd", "gigs_composite_bwd"):
-            getattr(lib, fn).argtypes = ck._SIGNATURES[fn]
+            getattr(lib, fn).argtypes = ck.signatures()[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs

@@ -122,7 +122,7 @@ def build(ck, root: str, baseline: str | None):
                 if "registers" in ln]
         print(f"[build] {name}: {regs}", flush=True)
         lib = ctypes.CDLL(so)
-        lib.gigs_expand.argtypes = ck._SIGNATURES["gigs_expand"]
+        lib.gigs_expand.argtypes = ck.signatures()["gigs_expand"]
         libs[name] = lib
     return libs
 

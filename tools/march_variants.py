@@ -190,10 +190,10 @@ def build(ck, root: str, baseline: str | None):
                 if "registers" in ln]
         print(f"[build] {name}: {regs}", flush=True)
         lib = ctypes.CDLL(so)
-        lib.gigs_gi_march.argtypes = ck._SIGNATURES["gigs_gi_march"]
+        lib.gigs_gi_march.argtypes = ck.signatures()["gigs_gi_march"]
         lib.gigs_gi_march_coherent.argtypes = (
             BASELINE_COHERENT if name == "baseline"
-            else ck._SIGNATURES["gigs_gi_march_coherent"])
+            else ck.signatures()["gigs_gi_march_coherent"])
         if name.startswith("count"):
             for fn in ("gigs_gi_march_count", "gigs_gi_march_coherent_count"):
                 getattr(lib, fn).argtypes = [_P]

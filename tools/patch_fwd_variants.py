@@ -247,7 +247,7 @@ def build(ck, root: str, baseline: str | None):
         print(f"[build] {name}: {regs}", flush=True)
         lib = ctypes.CDLL(so)
         new = "int stages" in open(os.path.join(d, "patch_fwd.cu")).read()
-        args = ck._SIGNATURES["gigs_patch_fwd"]
+        args = ck.signatures()["gigs_patch_fwd"]
         lib.gigs_patch_fwd.argtypes = args if new else args[:7] + args[-1:]
         libs[name] = (lib, new)
     return libs

@@ -454,7 +454,7 @@ def build(ck, root: str, baseline: str | None):
                 if "registers" in ln]
         print(f"[build] {name}: {regs}", flush=True)
         lib = ctypes.CDLL(so)
-        lib.gigs_patch_bwd.argtypes = ck._SIGNATURES["gigs_patch_bwd"]
+        lib.gigs_patch_bwd.argtypes = ck.signatures()["gigs_patch_bwd"]
         libs[name] = (lib, so)
     return libs
 
