@@ -35,7 +35,8 @@ Phases (any failure exits non-zero):
                steps on 8 train views of 800x800 initialised from the 300k
                shell points, with a densification and an opacity reset,
                launch counts set to 0 just before: composite_bwd,
-               reduce_instance_grads and sh_bwd must launch once per step
+               reduce_instance_grads, sh_bwd and adam must launch once per
+               step
                (sh_fwd in the steps and the eval renders). Per-step
                and per-stage times, alive counts, capacity growth, peak
                memory; then 3 untimed
@@ -58,6 +59,11 @@ Phases (any failure exits non-zero):
                twin on the same tensors: colour and every gradient
                bit-equal, two launches bit-identical, both times, the
                byte bound, each kernel's resources
+     adam      one launch over the Gaussians' ten groups at bicycle's
+               shapes (2^23 slots x 67 floats) and one over the 256^2
+               cubemap, against the plain chain on the same tensors: p, mu
+               and nu bit-equal; the launches' times, the byte bound
+               (28 B an element) and the chain's time
   9. train parity  one phase-1 loss and its gradients on CUDA tensors
                (kernels) against CPU tensors (plain versions) at 64x48
  10. phase 2   the train CLI from phase 7's final checkpoint
@@ -145,7 +151,7 @@ counts these, `bound_ms_unculled` all of them), and each kernel's
 registers, shared memory and resident blocks per SM (phase 4 also for the
 two marches' SSAO and SSR instantiations); phase 8 also checks
 that two composite_bwd launches give bit-identical rows.
-Then the kernel table as one JSON line (eleven kernels), the card line, and
+Then the kernel table as one JSON line (twelve kernels), the card line, and
 last {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -923,6 +929,8 @@ def main() -> None:
     entries.insert(3, reduce_phase(torch, dev,
                                    np.random.RandomState(args.seed + 7)))
     entries[4:4] = sh_phase(torch, dev, np.random.RandomState(args.seed + 8))
+    entries.insert(6, adam_phase(torch, dev,
+                                 np.random.RandomState(args.seed + 9)))
 
     # -- 9. train parity: one phase-1 gradient, kernels vs plain --------------
     t0 = time.time()
@@ -1001,7 +1009,8 @@ def main() -> None:
 
 SERVING_KERNELS = ("expand", "composite_fwd", "gi_march", "patch_fwd",
                    "sh_fwd")
-TRAINING_KERNELS = ("composite_bwd", "reduce_instance_grads", "sh_bwd")
+TRAINING_KERNELS = ("composite_bwd", "reduce_instance_grads", "sh_bwd",
+                    "adam")
 PHASE2_KERNELS = ("gi_march_coherent", "patch_bwd")
 ARGMAX_KERNELS = ("composite_fwd_peak",)
 # launches of one phase-2 step with --indirect at light_base_res 256
@@ -1009,7 +1018,7 @@ PHASE2_STEP_LAUNCHES = {"expand": 1, "composite_fwd": 1,
                         "composite_fwd_peak": 0, "composite_bwd": 1,
                         "reduce_instance_grads": 1, "gi_march": 0,
                         "gi_march_coherent": 2, "patch_fwd": 3,
-                        "patch_bwd": 3, "sh_fwd": 1, "sh_bwd": 1}
+                        "patch_bwd": 3, "sh_fwd": 1, "sh_bwd": 1, "adam": 2}
 
 
 def train_phase(torch, dev, ck, timing, work_dir, rng):
@@ -1430,6 +1439,79 @@ def sh_phase(torch, dev, rng):
             slots=n, degree=deg, rest_rows=rows, resources=res))
     log(f"  ({time.time() - t0:.1f} s)")
     return entries
+
+
+def adam_phase(torch, dev, rng):
+    """The adam kernel at bicycle's shapes: the Gaussians' ten groups over
+    SH_SLOTS slots (one launch) and the light's cubemap (another), from
+    step 30,001 (the BRDF's schedule at its offset), random parameters,
+    gradients and moments, against the plain chain (optim.adam_step) on
+    the same tensors: p, mu and nu bit-equal in every group. Returns the
+    kernel's entry: the Gaussians' launch time, the byte bound (28 B an
+    element), the chain's time over the same groups, the light's launch
+    time besides."""
+    from gi_gs_tpu_torch.config import OptimizationConfig
+    from gi_gs_tpu_torch.ops import cuda_kernels as ck
+    from gi_gs_tpu_torch.train import optim
+    t0 = time.time()
+    n, count = SH_SLOTS, 30_001
+    gen = torch.Generator(device=dev).manual_seed(int(rng.randint(1 << 30)))
+    opt = OptimizationConfig()
+    # the trained fields at SH degree 3, 67 floats a slot
+    slot = {k: v.shape[1:] for k, v in gaussian_fields(rng, 1, 1).items()
+            if k in optim.TRAINABLE_FIELDS}
+    sets = {"gaussians": (optim.build_optimizer(opt, 4.0),
+                          {f: (n,) + s for f, s in slot.items()}),
+            "light": (optim.build_light_optimizer(opt),
+                      {"cubemap": (6, LIGHT_RES, LIGHT_RES, 3)})}
+    log(f"[adam] at bicycle's shapes: {n} slots x "
+        f"{sum(math.prod(s) for s in slot.values())} floats in "
+        f"{len(slot)} groups, and the {LIGHT_RES}^2 cubemap; step {count}")
+    ms, elements, equal, errs, plain_ms = {}, {}, {}, {}, 0.0
+    for name, (tx, shapes) in sets.items():
+        rand = lambda shape, scale: scale * torch.randn(
+            shape, device=dev, generator=gen)
+        view = {f: rand(s, 1.0) for f, s in shapes.items()}
+        grads = {f: rand(s, 1e-3) for f, s in shapes.items()}
+        state = {optim.GROUP_OF_FIELD.get(f, f): {
+            "mu": rand(s, 1e-3), "nu": rand(s, 1e-3) ** 2,
+            "count": count - 1} for f, s in shapes.items()}
+        step = lambda: tx.step(grads, state, view)
+        chain = lambda: {f: optim.adam_step(
+            p, grads[f], state[optim.GROUP_OF_FIELD.get(f, f)],
+            tx.lrs[optim.GROUP_OF_FIELD.get(f, f)]) for f, p in view.items()}
+        new_view, new_state = step()
+        for f, (p, st) in chain().items():
+            grp = optim.GROUP_OF_FIELD.get(f, f)
+            for what, a, b in (("p", new_view[f], p),
+                               ("mu", new_state[grp]["mu"], st["mu"]),
+                               ("nu", new_state[grp]["nu"], st["nu"])):
+                equal[f"{f}.{what}"] = torch.equal(a, b)
+                errs[f"{f}.{what}"] = float((a - b).abs().max())
+        del new_view, new_state
+        elements[name] = sum(p.numel() for p in view.values())
+        ms[name] = kernel_ms(step, "adam", 10)
+        if name == "gaussians":
+            plain_ms = cuda_ms(chain, 3)
+        del view, grads, state
+        torch.cuda.empty_cache()
+    bad = sorted(k for k, v in equal.items() if not v)
+    log(f"  bit-equal to the plain chain in p, mu and nu of every group: "
+        f"{not bad}{'; differ: ' + str(bad) if bad else ''}")
+    res = ck.resources("gigs_adam_resources", dev)
+    log(f"  adam resources: {res}; the light's launch "
+        f"({elements['light']} floats) {ms['light']:.3f} ms")
+    entry = kernel_entry(
+        "adam", "gi_gs_tpu_torch/csrc/adam.cu",
+        "none: optax's scale_by_adam and the groups' rates "
+        "(gi_gs_tpu/train/optim.py) are XLA", max(errs.values()), not bad,
+        "bit-equal", ms["gaussians"], plain_ms, 28.0 * elements["gaussians"],
+        10.0 * elements["gaussians"], slots=n, elements=elements["gaussians"],
+        light_elements=elements["light"], light_ms=ms["light"],
+        light_bound_ms=28.0 * elements["light"] / HBM_BYTES_PER_S * 1e3,
+        resources=res)
+    log(f"  ({time.time() - t0:.1f} s)")
+    return entry
 
 
 def train_parity_phase(torch, dev, config_mod, params_from_numpy, rng):
@@ -2310,7 +2392,7 @@ def parity_phase(torch, dev, config_mod, render_cli, params_from_numpy, rng):
 # the kernels of both training phases, which the reduced gates must launch
 GATE_KERNELS = ("expand", "composite_fwd", "composite_bwd",
                 "reduce_instance_grads", "gi_march_coherent", "patch_fwd",
-                "patch_bwd", "sh_fwd", "sh_bwd")
+                "patch_bwd", "sh_fwd", "sh_bwd", "adam")
 
 
 def quality_phase(torch, dev, ck, card):

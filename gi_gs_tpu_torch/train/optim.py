@@ -20,6 +20,10 @@ group).
 
 State: {group: {"mu": tensor, "nu": tensor, "count": int}}, one
 parameter field per group.
+
+On CUDA tensors a step is one launch of the kernel `adam`
+(csrc/adam.cu) over every group, with the chain's bits on the card; CPU
+tensors take the chain (`adam_step`). Each step is the span `adam`.
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ import numpy as np
 import torch
 
 from ..config import OptimizationConfig
+from ..ops import cuda_kernels as ck
+from ..utils import timing
 from ..utils.math_utils import expon_lr
 
 TRAINABLE_FIELDS = ("xyz", "features_dc", "features_rest", "opacity",
@@ -42,6 +48,9 @@ GROUP_OF_FIELD = {
     "rotation": "rotation",
 }
 B1, B2, EPS = 0.9, 0.999, 1e-15
+# the chain's Python-float scalars as the card's kernels round them
+F32_CONSTANTS = tuple(float(np.float32(v))
+                      for v in (1 - B1, B1, 1 - B2, B2, EPS))
 
 LR = Union[float, Callable[[int], float]]
 
@@ -69,8 +78,59 @@ def adam_step(p: torch.Tensor, g: torch.Tensor, st: Dict, lr: LR):
     bc1 = _bias_correction(B1, count)
     bc2 = _bias_correction(B2, count)
     u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
-    step_size = lr(st["count"]) if callable(lr) else lr
-    return p + (-(step_size * u)), {"mu": mu, "nu": nu, "count": count}
+    return p + (-(_rate(lr, st["count"]) * u)), \
+        {"mu": mu, "nu": nu, "count": count}
+
+
+def _rate(lr: LR, count: int) -> float:
+    """The group's rate for the step from `count` (before the
+    increment)."""
+    return lr(count) if callable(lr) else lr
+
+
+def adam_scalars(count: int, rate: float) -> np.ndarray:
+    """f32 [rate, 1 / bc1, 1 / bc2] of the step to `count` (after the
+    increment), as `adam_step` rounds them on the card: a Python-float
+    factor is rounded to f32 once, and PyTorch's CUDA division by a CPU
+    scalar multiplies by the f32 reciprocal of its f32 value."""
+    one = np.float32(1.0)
+    return np.array([np.float32(rate),
+                     one / np.float32(_bias_correction(B1, count)),
+                     one / np.float32(_bias_correction(B2, count))],
+                    np.float32)
+
+
+def adam_table(groups) -> tuple:
+    """The host table of one `adam` launch over `groups`, a sequence of
+    (p, g, mu, nu, p_out, mu_out, nu_out, scalars): int64 [G, 8] of the
+    seven data pointers and the element count, f32 [G, 3] of the
+    scalars."""
+    ptrs = np.array([[t.data_ptr() for t in grp[:7]] + [grp[0].numel()]
+                     for grp in groups], np.int64).reshape(-1, 8)
+    scalars = np.array([grp[7] for grp in groups],
+                       np.float32).reshape(-1, 3)
+    return ptrs, scalars
+
+
+def adam_cuda(items) -> list:
+    """One `adam` launch over `items`, a sequence of (name, p, g, state,
+    rate) of contiguous f32 CUDA tensors on one device: returns each
+    group's (new p, new state), bit for bit `adam_step`'s on the card."""
+    dev = items[0][1].device
+    groups, out = [], []
+    for name, p, g, st, rate in items:
+        for what, t in (("p", p), ("g", g), ("mu", st["mu"]),
+                        ("nu", st["nu"])):
+            ck.check(t, f"{name}.{what}", torch.float32, p.shape, dev)
+        new = [torch.empty_like(p) for _ in range(3)]
+        count = st["count"] + 1
+        groups.append((p, g, st["mu"], st["nu"], *new,
+                       adam_scalars(count, rate)))
+        out.append((new[0], {"mu": new[1], "nu": new[2], "count": count}))
+    ptrs, scalars = adam_table(groups)
+    ck.launch("adam", dev, ptrs.ctypes.data, scalars.ctypes.data,
+              len(groups), *F32_CONSTANTS)
+    return out
 
 
 @dataclasses.dataclass
@@ -87,12 +147,22 @@ class GroupAdam:
     def step(self, grads: Dict[str, torch.Tensor], state: Dict[str, Dict],
              view: Dict[str, torch.Tensor]):
         """-> (updated view, new state)."""
-        new_view, new_state = {}, {}
-        for f, p in view.items():
-            grp = GROUP_OF_FIELD.get(f, f)
-            new_view[f], new_state[grp] = adam_step(p, grads[f], state[grp],
-                                                    self.lrs[grp])
-        return new_view, new_state
+        groups = {f: GROUP_OF_FIELD.get(f, f) for f in view}
+        with timing.span("adam"):
+            if next(iter(view.values())).is_cuda:
+                # normal's and albedo's gradients arrive as column-major
+                # slices of the compositing table's, the cubemap's with its
+                # channels outermost: one copy each
+                got = adam_cuda([
+                    (f, p, grads[f].contiguous(), state[groups[f]],
+                     _rate(self.lrs[groups[f]], state[groups[f]]["count"]))
+                    for f, p in view.items()])
+            else:
+                got = [adam_step(p, grads[f], state[groups[f]],
+                                 self.lrs[groups[f]])
+                       for f, p in view.items()]
+        return ({f: p for f, (p, _) in zip(view, got)},
+                {groups[f]: st for f, (_, st) in zip(view, got)})
 
 
 def _scaled(lr: LR, scale_fn) -> LR:

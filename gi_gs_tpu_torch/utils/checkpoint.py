@@ -81,10 +81,11 @@ def save_state(path: str, state, extra: Optional[Dict] = None) -> None:
 
 
 def _opt_to(opt: Dict, device) -> Dict:
-    return {g: {"mu": torch.as_tensor(st["mu"], dtype=torch.float32,
-                                      device=device),
-                "nu": torch.as_tensor(st["nu"], dtype=torch.float32,
-                                      device=device),
+    """The moments on `device`, contiguous as the CUDA Adam takes them (the
+    CPU chain leaves some column-major)."""
+    to = lambda x: torch.as_tensor(x, dtype=torch.float32,
+                                   device=device).contiguous()
+    return {g: {"mu": to(st["mu"]), "nu": to(st["nu"]),
                 "count": int(st["count"])} for g, st in opt.items()}
 
 

@@ -1,4 +1,4 @@
-"""The eleven CUDA kernels against their plain PyTorch versions on the card
+"""The twelve CUDA kernels against their plain PyTorch versions on the card
 (csrc/*.cu, built at first use), the coherent march's keys against the
 plain offset table included, and the tiled rasterizer against the
 brute-force oracle. Marked `cuda`: they skip without a GPU.
@@ -19,8 +19,10 @@ from gi_gs_tpu_torch.ops.rasterize.preprocess import (PreFlat,
                                                       Preprocessed,
                                                       preprocess)
 from gi_gs_tpu_torch.scene.cameras import make_camera
+from gi_gs_tpu_torch.train import optim
 from gi_gs_tpu_torch.utils.math_utils import build_covariance_3d
 
+import adam_cases
 import expand_cases
 from cull_rows import cull_rows
 from march_scenes import degenerate_centres, smooth_scene
@@ -806,6 +808,96 @@ def test_latlong_backward_is_deterministic(dev):
     assert all(torch.equal(grads[0], g) for g in grads[1:])
 
 
+def _chain_step(tx, view, grads, state):
+    """The plain chain, group by group, on the same tensors."""
+    out = {}
+    for f, p in view.items():
+        grp = optim.GROUP_OF_FIELD.get(f, f)
+        out[f] = optim.adam_step(p, grads[f], state[grp], tx.lrs[grp])
+    return out
+
+
+def _misaligned(t):
+    """The same values, contiguous, 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _column_major(t):
+    """The same values, first dimension innermost, as the compositing
+    table's gradient hands normal's and albedo's over."""
+    return t.reshape(t.shape[0], -1).t().contiguous().t().view(t.shape)
+
+
+@pytest.mark.parametrize("layout", ["aligned", "misaligned", "strided"])
+@pytest.mark.parametrize("count", adam_cases.COUNTS)
+@pytest.mark.parametrize("group", ["gaussians", "light"])
+def test_adam_matches_the_chain(dev, group, count, layout):
+    """One `adam` launch over every group against `adam_step` on the card:
+    p, mu and nu bit for bit in every group, at ragged group sizes, the
+    scheduled and constant rates, gradients with zeros, residues,
+    denormals and large values, and nu at 0. A misaligned gradient takes
+    the kernel's scalar accesses; a strided one is copied first."""
+    tx = adam_cases.optimizer(group)
+    view, grads, state = adam_cases.to(
+        *adam_cases.step_inputs(group, count, seed=count), dev)
+    if layout != "aligned":
+        grads = {f: (_misaligned if layout == "misaligned"
+                     else _column_major)(g) for f, g in grads.items()}
+        assert all(g.is_contiguous() == (layout == "misaligned")
+                   or g.shape[1:].numel() == 1 for g in grads.values())
+    before = ck.launches["adam"]
+    new_view, new_state = tx.step(grads, state, view)
+    torch.cuda.synchronize()
+    assert ck.launches["adam"] == before + 1
+    for f, (want_p, want_st) in _chain_step(tx, view, grads, state).items():
+        grp = optim.GROUP_OF_FIELD.get(f, f)
+        _same_bits(f"{f}.p", new_view[f], want_p)
+        _same_bits(f"{f}.mu", new_state[grp]["mu"], want_st["mu"])
+        _same_bits(f"{f}.nu", new_state[grp]["nu"], want_st["nu"])
+        assert new_state[grp]["count"] == count
+        assert new_view[f].data_ptr() != view[f].data_ptr()
+
+
+def test_adam_refuses_strided_and_non_f32_tensors(dev):
+    view, grads, state = adam_cases.to(*adam_cases.step_inputs("light", 2),
+                                       dev)
+    item = lambda **kw: [tuple(dict(dict(
+        name="cubemap", p=view["cubemap"], g=grads["cubemap"],
+        st=state["cubemap"], rate=0.05), **kw).values())]
+    optim.adam_cuda(item())
+    with pytest.raises(ValueError, match="contiguous"):
+        optim.adam_cuda(item(g=grads["cubemap"].transpose(1, 2)))
+    with pytest.raises(ValueError, match="contiguous"):
+        optim.adam_cuda(item(p=view["cubemap"].transpose(1, 2)))
+    with pytest.raises(ValueError, match="dtype"):
+        optim.adam_cuda(item(g=grads["cubemap"].double()))
+    with pytest.raises(ValueError, match="dtype"):
+        optim.adam_cuda(item(st=dict(state["cubemap"],
+                                     mu=state["cubemap"]["mu"].half())))
+    with pytest.raises(ValueError, match="shape"):
+        optim.adam_cuda(item(g=grads["cubemap"][:, :, :, :2].contiguous()))
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        optim.adam_cuda(item(g=grads["cubemap"].cpu()))
+
+
+@pytest.mark.parametrize("phase", [1, 2])
+def test_adam_launches_once_per_optimizer_per_training_step(dev, phase):
+    """A training step on the card launches `adam` once for the
+    Gaussians' ten groups and, in phase 2, once for the cubemap; every
+    gradient arrives as the launcher takes it."""
+    from test_torch_spans import Scene, make_step, port_cfg
+    state, step = make_step(Scene(dev), phase, port_cfg(), dev)
+    step(state)
+    for _ in range(2):
+        before = ck.launches["adam"]
+        step(state)
+        torch.cuda.synchronize()
+        assert ck.launches["adam"] - before == phase
+
+
 SH_N = 1000                 # 7 tiles of 128 slots and a partial one
 # (active degree, stored rest rows): every degree over bicycle's 15 rows,
 # and garden's degree 1 over 3
@@ -956,6 +1048,32 @@ def test_sh_function_launches_once_each_way(dev):
         _same_bits(name, got, r)
 
 
+@pytest.mark.parametrize("group", ["gaussians", "light"])
+def test_adam_step_is_one_launch(dev, group):
+    """GroupAdam.step on CUDA tensors runs one device kernel, `adam`'s,
+    and nothing else, whatever the number of groups; the step's inputs
+    are left as they were."""
+    tx = adam_cases.optimizer(group)
+    view, grads, state = adam_cases.to(*adam_cases.step_inputs(group, 2),
+                                       dev)
+    keep = {f: p.clone() for f, p in view.items()}
+    tx.step(grads, state, view)
+    torch.cuda.synchronize()
+    before = ck.launches["adam"]
+    # device activity alone, as tests/test_torch_spans.py's sleep test
+    # records it: with CPU activity here too, that later session of the
+    # same process recorded no device event (PyTorch 2.11 on the H100)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        tx.step(grads, state, view)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert ck.launches["adam"] == before + 1
+    assert len(kernels) == 1 and "adam_kernel" in kernels[0], kernels
+    assert all(torch.equal(view[f], keep[f]) for f in view)
+
+
 def test_sh_launches_once_each_way_per_training_step(dev):
     """A phase-1 training step on the card launches sh_fwd once and
     sh_bwd once, step after step."""
@@ -968,3 +1086,4 @@ def test_sh_launches_once_each_way_per_training_step(dev):
         torch.cuda.synchronize()
         assert (ck.launches["sh_fwd"] - before["sh_fwd"],
                 ck.launches["sh_bwd"] - before["sh_bwd"]) == (1, 1)
+

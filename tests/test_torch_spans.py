@@ -247,12 +247,15 @@ def test_step_span_tree(phase, syncs):
     names = by_name(rec.spans)
     want = PHASE1 if phase == 1 else PHASE2
     assert want <= set(names)
-    assert set(names) - want == {"step", "composite_bwd", "sh", "sh_bwd"} \
+    assert set(names) - want == {"step", "composite_bwd", "sh", "sh_bwd",
+                                 "adam"} \
         | set(syncs) | ({"light_bwd"} if phase == 2 else set())
     parent = lambda s: ids[s.parent].name
     assert {parent(s) for s in names["composite_bwd"]} == {"backward"}
     assert {parent(s) for s in names["sh"]} == {"activations"}
     assert {parent(s) for s in names["sh_bwd"]} == {"backward"}
+    assert [parent(s) for s in names["adam"]] == (
+        ["optimizer"] if phase == 1 else ["optimizer", "light_optimizer"])
     assert parent(names["preprocess"][0]) == "step"
     assert {parent(s) for s in names["sync.preprocess_scalar"]} == \
         {"preprocess"}
