@@ -139,6 +139,16 @@ Phases (any failure exits non-zero):
                densification, DP phase 2, tile-sharded compositing, two
                tile-sharded steps, grow_state mid-run), each checked for
                its change and for bit-equal ranks
+ 19. relight  (run after phase 6, before the first profiler session)
+               the light's prefilter tables kept on the card: the store
+               emptied, the first `render_cli.build_light` of a 256
+               cubemap uploads them (its time and bytes to the card);
+               three later builds of new cubemaps, each under the
+               profiler (no host-to-device copy of 1 MB or more), in span
+               mode (the root span light over prefilter_tables and
+               build_mips, one light_builds) and timed with CUDA events;
+               a relit light through the store bit-equal, level by level,
+               to one built from a fresh `cm.build_prefilter_tables`
 Phase 4 also holds composite_fwd_peak against its plain version on view 0
 (accumulator rows bit-equal to composite_fwd's, <= 0.1% of covered pixels
 with another peak), and phase 6 the argmax render on CUDA against CPU.
@@ -151,7 +161,8 @@ counts these, `bound_ms_unculled` all of them), and each kernel's
 registers, shared memory and resident blocks per SM (phase 4 also for the
 two marches' SSAO and SSR instantiations); phase 8 also checks
 that two composite_bwd launches give bit-identical rows.
-Then the kernel table as one JSON line (twelve kernels), the card line, and
+Then the kernel table as one JSON line (twelve kernels, and phase 19's
+numbers under `relight`), the card line, and
 last {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -920,6 +931,12 @@ def main() -> None:
     log(f"[parity] render_pbr_view CUDA vs CPU plain at 64x48: worst key "
         f"{err} ({time.time() - t0:.1f} s)")
 
+    # -- 19. relight: the light's tables kept on the card. Run here, before
+    # the process's first profiler session: a later session can record no
+    # device event (PERF.md, Open questions), and this phase profiles.
+    relight = relight_phase(torch, dev, cfg,
+                            np.random.RandomState(args.seed + 10))
+
     # -- 7. train: the phase-1 train CLI, counting launches -------------------
     train_launches, train_res, train_data = train_phase(
         torch, dev, ck, timing, work, np.random.RandomState(args.seed + 2))
@@ -996,7 +1013,7 @@ def main() -> None:
                          for e in entries],
              "tpu_kernels": [{"replaces": f, "function": fn, "status": s}
                              for f, fn, s in TPU_KERNELS],
-             "card": card}
+             "relight": relight, "card": card}
     if not args.workdir:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[done] {time.time() - t_start:.1f} s")
@@ -1884,7 +1901,7 @@ def eval_phase(torch, ck, data, model, rng, seed):
         f"{SIZE // 2}x{SIZE // 2}, cubemap {LIGHT_RES}^2, in {wall:.1f} s; "
         f"prefilter host tables "
         + ("built" if misses else "reused from this process's cache" if hits
-           else "not needed")
+           else "not needed: the tables kept on the card")
         + f" ({hits} hits, {misses} misses); launches {launches}")
     log("  ms per relit view (device synchronised): " + ", ".join(
         f"{1e3 * t:.1f}" for t in rel["view_seconds"]))
@@ -2452,6 +2469,99 @@ def dryrun_phase(torch, dev, ck):
         f"{res['phase2_dp']['cubemap_change']:.4f}, multihost capacity "
         f"{res['multihost']['capacity']}; launches {launches}")
     return launches
+
+
+def relight_phase(torch, dev, cfg, rng):
+    """Phase 19: the light's prefilter tables kept on the card. The store
+    is emptied, so the first build_light uploads the tables; later builds
+    of new 256 cubemaps read them. A relit light (through the store) is
+    held bit for bit against one built from a fresh upload
+    (`cm.build_prefilter_tables`); each later build runs under the
+    profiler, which must show no host-to-device copy of 1 MB or more, and
+    in span mode, where it is the root span light with the stages
+    prefilter_tables and build_mips under it and counts one light_builds.
+    Returns the phase's numbers."""
+    from torch.profiler import ProfilerActivity, profile
+    from gi_gs_tpu_torch.cli import render_cli
+    from gi_gs_tpu_torch.models import light as light_mod
+    from gi_gs_tpu_torch.ops import cubemap as cm
+    from gi_gs_tpu_torch.utils import timing
+
+    def cube():
+        return torch.as_tensor(random_cubemap(rng, LIGHT_RES), device=dev)
+
+    def h2d(fn):
+        """fn()'s result and its host-to-device copies' bytes."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"),
+                            "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+        return out, [int(e.get("args", {}).get("bytes", 0)) for e in events
+                     if "HtoD" in e.get("name", "")]
+
+    light_mod._tables.clear()
+    torch.cuda.empty_cache()
+    first_cube = cube()
+    t0 = time.time()
+    _, first_copies = h2d(lambda: render_cli.build_light(cfg, first_cube))
+    first_s = time.time() - t0
+    if sum(first_copies) < 1 << 30:
+        fail(f"the first light copied {sum(first_copies)} B to the card; "
+             "the tables' upload was not seen")
+    later, big, small = [], [], 0
+    for _ in range(3):
+        c = cube()
+        timing.start_spans()
+        _, copies = h2d(lambda: render_cli.build_light(cfg, c))
+        rec = timing.stop_spans()
+        big += [b for b in copies if b >= 1 << 20]
+        small += sum(copies)
+        roots = [s for s in rec.spans if s.parent == 0]
+        kids = [s.name for s in rec.spans if s.parent == roots[0].id] \
+            if len(roots) == 1 else []
+        if [r.name for r in roots] != ["light"] or \
+                kids != ["prefilter_tables", "build_mips"] or \
+                rec.counters.get("light_builds") != 1:
+            fail(f"a later light's spans "
+                 f"{[(s.name, s.parent) for s in rec.spans]} and counters "
+                 f"{rec.counters}")
+        later.append(cuda_ms(lambda: render_cli.build_light(cfg, c), 10))
+    if big:
+        fail(f"a later light copied {big} B to the card in one copy")
+    c = cube()
+    with torch.inference_mode():
+        got = render_cli.build_light(cfg, c)
+        spec, arrays = cm.build_prefilter_tables(
+            LIGHT_RES, min_res=light_mod.LIGHT_MIN_RES,
+            min_roughness=light_mod.MIN_ROUGHNESS,
+            max_roughness=light_mod.MAX_ROUGHNESS, device=dev)
+        want = light_mod.build_mips_packed(c, spec, arrays)
+    equal = [torch.equal(a, b) for a, b in
+             zip(got.specular + (got.diffuse,),
+                 want.specular + (want.diffuse,))]
+    if not all(equal):
+        fail(f"a relit light through the store differs from a fresh "
+             f"upload's, level by level {equal}")
+    out = {"first_build_s": first_s,
+           "first_build_h2d_bytes": sum(first_copies),
+           "later_build_ms": later,
+           "later_builds_h2d_bytes": small,
+           "tables_bytes": sum(a.numel() * a.element_size()
+                               for a in arrays),
+           "levels_bit_equal": len(equal)}
+    log(f"[relight] first build_light {first_s:.2f} s (its tables' upload "
+        f"{out['first_build_h2d_bytes'] / 2**30:.3f} GiB); later builds "
+        f"{', '.join(f'{x:.3f}' for x in later)} ms (CUDA events, 10 each), "
+        f"{small} B copied to the card by the three, none of 1 MB or more; "
+        f"{len(equal)} levels of a "
+        f"relit light bit-equal to a fresh upload's")
+    return out
 
 
 if __name__ == "__main__":

@@ -51,8 +51,13 @@ def save_image(path: str, img, chw: bool = True) -> None:
 
 
 @torch.inference_mode()
+@timing.spanned("light")
 def build_light(cfg, cubemap: torch.Tensor) -> light_mod.CubemapLight:
-    """Prefiltered light of the cubemap base on its device."""
+    """Prefiltered light of the cubemap base on its device: the span
+    `light` (a root where a relight builds it, under `view` where
+    `render_pbr_view` does) and one count of `light_builds`. The tables
+    are uploaded by the first build on a device and kept."""
+    timing.count("light_builds", 1)
     with timing.stage("prefilter_tables", cubemap.device):
         spec, arrays = light_mod.build_prefilter_tables(
             cubemap.shape[1], device=cubemap.device)

@@ -19,7 +19,7 @@ import torch
 
 from ..ops import cubemap as cm
 from ..utils import timing
-from ..utils.device import device_constant
+from ..utils.device import canonical, device_constant
 from ..utils.math_utils import clip
 
 LIGHT_MIN_RES = 16
@@ -32,12 +32,27 @@ class CubemapLight(NamedTuple):
     diffuse: torch.Tensor                # [6, 16, 16, 3]
 
 
+_tables: dict = {}
+
+
 def build_prefilter_tables(base_res: int, cutoff: float = 0.99,
                            device="cuda"):
-    """Static prefilter operators for `build_mips_packed` on `device`."""
-    return cm.build_prefilter_tables(
-        base_res, min_res=LIGHT_MIN_RES, min_roughness=MIN_ROUGHNESS,
-        max_roughness=MAX_ROUGHNESS, cutoff=cutoff, device=device)
+    """Static prefilter operators for `build_mips_packed` on `device`
+    (`cm.build_prefilter_tables`'s (spec, arrays)), uploaded once per
+    (base_res, cutoff, device) and kept: every later light on that device,
+    a relight or a phase-2 step's, copies nothing from the host (~1.5 GB
+    at base_res 256). Made outside inference mode, so that a light built
+    under the render CLI's inference mode and a phase-2 step's light
+    backward share them."""
+    key = (base_res, cutoff, canonical(device))
+    got = _tables.get(key)
+    if got is None:
+        with torch.inference_mode(False):
+            got = cm.build_prefilter_tables(
+                base_res, min_res=LIGHT_MIN_RES, min_roughness=MIN_ROUGHNESS,
+                max_roughness=MAX_ROUGHNESS, cutoff=cutoff, device=key[2])
+        _tables[key] = got
+    return got
 
 
 def build_mips_packed(base: torch.Tensor, spec, arrays) -> CubemapLight:

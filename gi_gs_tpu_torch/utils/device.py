@@ -17,13 +17,22 @@ def device_constant(build: Callable[..., np.ndarray], *args,
     once per (build, args, device) and reused, so a per-view caller does
     not pay a host-to-device copy each call. Made outside inference mode,
     so autograd code may also use it."""
-    key = (build, args, torch.device(device))
+    key = (build, args, canonical(device))
     t = _constants.get(key)
     if t is None:
         with torch.inference_mode(False):
             t = torch.as_tensor(build(*args), device=device)
         _constants[key] = t
     return t
+
+
+def canonical(device: Union[str, torch.device]) -> torch.device:
+    """`device` with its index: "cuda" is the current card, so that a table
+    kept for "cuda" and one kept for "cuda:0" are the same table."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

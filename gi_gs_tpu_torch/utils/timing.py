@@ -15,8 +15,9 @@ by default (a `stage` is then a no-op).
 
 Counters are kept at the same boundaries in span mode: `host_syncs`, one
 per `sync.<site>` span (a place where the host blocks on the device), and the
-device-side totals given to `count` (`instances`, the rows binning
-made), added to on the device and read once, when the window stops.
+totals given to `count`: `instances`, the rows binning made, added to on
+the device and read once, when the window stops; `light_builds`, one per
+prefiltered light, on the host.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import functools
 import itertools
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Union
 
 import torch
 
@@ -117,7 +118,7 @@ class _Recorder:
         self.native: Dict[int, int] = {}
         self.closed: list = []
         self.backward: Optional[List[_Open]] = None
-        self.device: Dict[str, torch.Tensor] = {}
+        self.device: Dict[str, Union[torch.Tensor, int]] = {}
 
     def open(self, name: str) -> _Open:
         tid = threading.get_ident()
@@ -199,14 +200,18 @@ def spanned(name: str):
     return wrap
 
 
-def count(name: str, value: torch.Tensor) -> None:
-    """Add the device scalar `value` to the counter `name` on its device
-    (span mode only): no host read until `stop_spans`."""
+def count(name: str, value: Union[torch.Tensor, int]) -> None:
+    """Add `value` to the counter `name` (span mode only): a device scalar
+    is added on its device, with no host read until `stop_spans`; an int
+    on the host, with no device work."""
     rec = _rec
     if rec is None:
         return
     cur = rec.device.get(name)
     if cur is None:
-        rec.device[name] = value.to(torch.int64, copy=True)
-    else:
+        rec.device[name] = (value.to(torch.int64, copy=True)
+                            if torch.is_tensor(value) else int(value))
+    elif torch.is_tensor(cur):
         cur.add_(value)
+    else:
+        rec.device[name] = cur + value

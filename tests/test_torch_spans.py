@@ -289,6 +289,47 @@ def test_view_span_tree_and_instances():
     assert rec.counters["instances"] == 2 * want
 
 
+def test_light_span_tree_and_light_builds():
+    """A relight (build_light before its view) is a root span light; a
+    view that builds its own light holds it under view. Each light holds
+    the stages prefilter_tables and build_mips, and counts one
+    light_builds in span mode; outside span mode nothing is counted."""
+    scene = Scene("cpu")
+    cfg = port_cfg()
+    light = render_cli.build_light(cfg, scene.cubemap)
+    timing.start_spans()
+    view(scene, cfg, light)
+    rec = timing.stop_spans()
+    assert "light_builds" not in rec.counters
+    assert "light" not in by_name(rec.spans)
+
+    timing.start_spans()
+    relit = render_cli.build_light(cfg, scene.cubemap * 0.5)
+    view(scene, cfg, relit)
+    view(scene, cfg)
+    rec = timing.stop_spans()
+    ids = {s.id: s for s in rec.spans}
+    roots = [s for s in rec.spans if s.parent == 0]
+    assert [r.name for r in roots] == ["light", "view", "view"]
+    _check_tree([s for s in rec.spans if s.root == roots[0].id], "light")
+    lights = by_name(rec.spans)["light"]
+    assert [ids[s.parent].name if s.parent else None for s in lights] == \
+        [None, "view"]
+    assert lights[1].root == roots[2].id
+    for s in lights:
+        kids = sorted((k for k in rec.spans if k.parent == s.id),
+                      key=lambda k: k.start_ns)
+        assert [k.name for k in kids] == ["prefilter_tables", "build_mips"]
+    assert rec.counters["light_builds"] == 2
+    timing.start_spans()
+    timing.count("light_builds", 1)
+    timing.count("light_builds", 1)
+    assert timing.stop_spans().counters == {"host_syncs": 0,
+                                            "light_builds": 2}
+    render_cli.build_light(cfg, scene.cubemap)
+    assert timing.stop_spans() == timing.Records([], {})
+
+
 def test_worker_thread_span_takes_the_backward_parent():
     timing.start_spans()
     with timing.span("step"):
